@@ -1,0 +1,206 @@
+"""Dense level representation on the device: one tensor per level covering
+the union bounding box of that level's boxes.
+
+    data[lev]: [ncomp, BX, BY, BZ]   (no ghosts stored; fills return grown
+                                       tensors)
+
+Counterpart of ``peleanalysis_tpu/amr/dense.py`` (``DenseAmrState``,
+``DenseLevelMeta``, ``_union_mask_np``).  Each level is assembled from its
+boxes on the host and copied to the device once; the masks (in_level,
+covered, valid) are computed from box metadata on the host and copied over
+on first use.  "Hole" cells inside the bbox but outside the level's boxes
+take coarse-upsampled values in the fill, exactly like ghost cells.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .box import Box, BoxArray
+from .geometry import Geometry
+from .hierarchy import (AmrMeta, _periodic_shifts, load_plotfile_fabs,
+                        write_level_fabs)
+
+
+@dataclasses.dataclass
+class DenseLevelMeta:
+    bbox: Box                 # union bounding box (index space, no ghosts)
+    geom: Geometry
+
+
+def needs_clustering(ba: BoxArray, waste_factor: float = 4.0,
+                     min_cells: int = 1 << 21) -> bool:
+    """True when the union bbox wastes more than waste_factor x the valid
+    cells AND the bbox is big enough for the waste to matter (such a level
+    needs the sparse-refinement path, which is not ported yet)."""
+    bbox = ba.minimal_box()
+    return (bbox.size > waste_factor * ba.total_cells()
+            and bbox.size > min_cells)
+
+
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _box_slices(b: Box, bbox: Box):
+    return tuple(slice(b.lo[d] - bbox.lo[d], b.hi[d] - bbox.lo[d] + 1)
+                 for d in range(3))
+
+
+def _union_mask_np(ba: BoxArray, bbox: Box) -> np.ndarray:
+    m = np.zeros(bbox.shape, dtype=bool)
+    for b in ba:
+        m[_box_slices(b, bbox)] = True
+    return m
+
+
+def _level_metas(meta: AmrMeta) -> List[DenseLevelMeta]:
+    return [DenseLevelMeta(ba.minimal_box(), g)
+            for ba, g in zip(meta.bas, meta.geoms)]
+
+
+class DenseAmrState:
+    """Per-level dense tensors [ncomp, *bbox_shape] on ``device``."""
+
+    def __init__(self, meta: AmrMeta, names: Sequence[str],
+                 data: List[torch.Tensor], lmeta: List[DenseLevelMeta],
+                 device: torch.device):
+        self.meta = meta
+        self.names = list(names)
+        self.data = data
+        self.lmeta = lmeta
+        self.device = torch.device(device)
+        self._in_level_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
+        self._covered_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
+        self._masks: dict = {}
+
+    # -- construction --------------------------------------------------------
+    @classmethod
+    def from_level_fabs(cls, meta: AmrMeta, names: Sequence[str],
+                        level_fabs, device, dtype: torch.dtype
+                        ) -> "DenseAmrState":
+        """Assemble per-box ``[ncomp, *box.shape]`` arrays into one dense
+        array per level on the host (rounded to ``dtype`` there), then copy
+        each level to ``device`` once."""
+        np_dtype = _np_dtype(dtype)
+        lmeta = _level_metas(meta)
+        data = []
+        for lev in range(meta.n_levels):
+            bbox = lmeta[lev].bbox
+            ncomp = level_fabs[lev][0].shape[0]
+            out = np.zeros((ncomp,) + bbox.shape, dtype=np_dtype)
+            for b, fab in zip(meta.bas[lev], level_fabs[lev]):
+                out[(slice(None),) + _box_slices(b, bbox)] = fab
+            data.append(torch.from_numpy(out).to(device))
+        return cls(meta, names, data, lmeta, device)
+
+    @classmethod
+    def from_plotfile(cls, path: str, device, names=None, max_level=None,
+                      is_periodic=None, dtype: torch.dtype = torch.float32
+                      ) -> "DenseAmrState":
+        meta, names, fabs = load_plotfile_fabs(path, names, max_level,
+                                               is_periodic)
+        return cls.from_level_fabs(meta, names, fabs, device, dtype)
+
+    @classmethod
+    def from_numpy(cls, domains, prob_lo, prob_hi, is_periodic, ref_ratio,
+                   boxes, names, level_arrays, device,
+                   dtype: torch.dtype) -> "DenseAmrState":
+        """A state from plain tuples and numpy arrays.
+
+        domains[lev] and boxes[lev][i] are ``(lo, hi)`` index tuples;
+        level_arrays[lev] is the dense ``[ncomp, *bbox_shape]`` array over
+        the union bbox of boxes[lev] (holes included)."""
+        geoms = [Geometry(Box(*dom), prob_lo, prob_hi, is_periodic)
+                 for dom in domains]
+        bas = [BoxArray([Box(lo, hi) for lo, hi in bl]) for bl in boxes]
+        meta = AmrMeta(geoms, bas, list(ref_ratio))
+        lmeta = _level_metas(meta)
+        data = []
+        for lev, arr in enumerate(level_arrays):
+            want = (len(names),) + lmeta[lev].bbox.shape
+            if tuple(arr.shape) != want:
+                raise ValueError(f"level {lev} array shape {arr.shape} != "
+                                 f"{want}")
+            host = np.array(arr, dtype=_np_dtype(dtype))   # own, writable
+            data.append(torch.from_numpy(host).to(device))
+        return cls(meta, names, data, lmeta, device)
+
+    # -- masks ---------------------------------------------------------------
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data[0].dtype
+
+    def in_level_mask_np(self, lev: int) -> np.ndarray:
+        """bool [*bbox_shape]: cell covered by this level's boxes."""
+        if self._in_level_np[lev] is None:
+            self._in_level_np[lev] = _union_mask_np(self.meta.bas[lev],
+                                                    self.lmeta[lev].bbox)
+        return self._in_level_np[lev]
+
+    def covered_mask_np(self, lev: int) -> np.ndarray:
+        """bool: cell covered by the NEXT finer level (+periodic images)."""
+        if self._covered_np[lev] is None:
+            meta = self.meta
+            bbox = self.lmeta[lev].bbox
+            out = np.zeros(bbox.shape, dtype=bool)
+            if lev + 1 < meta.n_levels:
+                fine_c = meta.bas[lev + 1].coarsen(meta.ref_ratio[lev])
+                shifts = _periodic_shifts(meta.geoms[lev].is_periodic,
+                                          meta.geoms[lev].domain)
+                for fb in fine_c:
+                    for sh in shifts:
+                        isect = bbox.intersect(fb.shift(sh))
+                        if not isect.is_empty():
+                            out[_box_slices(isect, bbox)] = True
+            self._covered_np[lev] = out
+        return self._covered_np[lev]
+
+    def valid_mask_np(self, lev: int) -> np.ndarray:
+        return self.in_level_mask_np(lev) & ~self.covered_mask_np(lev)
+
+    def _device_mask(self, kind: str, lev: int) -> torch.Tensor:
+        key = (kind, lev)
+        if key not in self._masks:
+            host = getattr(self, f"{kind}_mask_np")(lev)
+            self._masks[key] = torch.from_numpy(host).to(self.device)
+        return self._masks[key]
+
+    def in_level_mask(self, lev: int) -> torch.Tensor:
+        return self._device_mask("in_level", lev)
+
+    def covered_mask(self, lev: int) -> torch.Tensor:
+        return self._device_mask("covered", lev)
+
+    def valid_mask(self, lev: int) -> torch.Tensor:
+        return self._device_mask("valid", lev)
+
+    def comp(self, name: str) -> int:
+        return self.names.index(name)
+
+    def with_data(self, names: Sequence[str],
+                  data: List[torch.Tensor]) -> "DenseAmrState":
+        st = DenseAmrState(self.meta, names, data, self.lmeta, self.device)
+        st._in_level_np = self._in_level_np
+        st._covered_np = self._covered_np
+        st._masks = self._masks
+        return st
+
+    # -- back to a plotfile ---------------------------------------------------
+    def level_fabs(self) -> List[List[np.ndarray]]:
+        """Per-level lists of each box's ``[ncomp, *box.shape]`` window;
+        each level is copied to the host once."""
+        out = []
+        for lev in range(self.meta.n_levels):
+            host = self.data[lev].cpu().numpy()
+            bbox = self.lmeta[lev].bbox
+            out.append([host[(slice(None),) + _box_slices(b, bbox)]
+                        for b in self.meta.bas[lev]])
+        return out
+
+    def to_plotfile(self, path: str, names=None) -> None:
+        write_level_fabs(self.meta, names or self.names, self.level_fabs(),
+                         path)

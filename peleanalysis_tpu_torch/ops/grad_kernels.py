@@ -1,0 +1,147 @@
+"""Gradient + magnitude: the hand-written CUDA kernel, its plain PyTorch
+version, and the dispatcher every gradient of the grad and curvature tools
+goes through.
+
+Counterpart of ``peleanalysis_tpu/ops/pallas_kernels.py`` (``grad_mag``,
+``grad_mag_pallas``, ``_grad_mag_kernel``).  The kernel source is
+``csrc/grad_mag.cu``; it is compiled with ``nvcc`` on first use into
+``build/peleanalysis_tpu_torch/`` at the repository root (a file named by
+the hash of the source and flags, so an edited source rebuilds), bound
+through its plain C entry points with ``ctypes``.
+
+``grad_mag`` sends a CPU tensor to ``grad_mag_torch`` and a CUDA tensor to
+the kernel.  Nothing falls back: a failed build or launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+from .stencil import centered_gradient, magnitude
+
+# kernel launches since import (or since a caller reset it): a run shows
+# that its gradients went through the kernel by how far this moved
+LAUNCHES = 0
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "grad_mag.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "peleanalysis_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+
+_LIB = None
+
+
+def grad_mag_torch(grown: torch.Tensor, dx: Sequence[float],
+                   with_mag: bool = True) -> torch.Tensor:
+    """Plain version: grown [X+2, Y+2, Z+2] (or [1, X+2, Y+2, Z+2]) ->
+    [4, X, Y, Z] (gx, gy, gz, |grad|), or [3, X, Y, Z] without the
+    magnitude."""
+    gx, gy, gz = centered_gradient(grown.reshape(grown.shape[-3:]), dx, 1)
+    comps = [gx, gy, gz]
+    if with_mag:
+        comps.append(magnitude(gx, gy, gz))
+    return torch.stack(comps)
+
+
+def grad_mag(grown: torch.Tensor, dx: Sequence[float],
+             with_mag: bool = True) -> torch.Tensor:
+    """Dispatcher: a CPU tensor takes ``grad_mag_torch``, a CUDA tensor the
+    kernel.  Same shapes and results as ``grad_mag_torch``."""
+    if grown.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"grad_mag takes float32 or float64, not {grown.dtype}")
+    if grown.ndim not in (3, 4) or (grown.ndim == 4 and grown.shape[0] != 1):
+        raise ValueError("grad_mag takes [X+2, Y+2, Z+2] or [1, X+2, Y+2, Z+2], "
+                         f"not {tuple(grown.shape)}")
+    if min(grown.shape[-3:]) < 3:
+        raise ValueError(f"grown shape {tuple(grown.shape)} has no interior cell")
+    if not grown.is_contiguous():
+        raise ValueError("grad_mag needs a contiguous tensor")
+    if len(dx) != 3:
+        raise ValueError(f"dx needs 3 entries, got {len(dx)}")
+    if grown.device.type == "cpu":
+        return grad_mag_torch(grown, dx, with_mag)
+    if grown.device.type != "cuda":
+        raise ValueError(f"grad_mag runs on cpu or cuda, not {grown.device}")
+    return _launch(grown, dx, with_mag)
+
+
+def _launch(grown: torch.Tensor, dx: Sequence[float],
+            with_mag: bool) -> torch.Tensor:
+    global LAUNCHES
+    X, Y, Z = (s - 2 for s in grown.shape[-3:])
+    if X > 65535 or (Y + 7) // 8 > 65535:
+        raise ValueError(f"grid too large for the kernel's launch: {(X, Y, Z)}")
+    out = torch.empty((4 if with_mag else 3, X, Y, Z), dtype=grown.dtype,
+                      device=grown.device)
+    lib = load_library()
+    fn = lib.grad_mag_f32 if grown.dtype == torch.float32 else lib.grad_mag_f64
+    with torch.cuda.device(grown.device):
+        stream = torch.cuda.current_stream(grown.device).cuda_stream
+        err = fn(grown.data_ptr(), out.data_ptr(), X, Y, Z,
+                 2.0 * float(dx[0]), 2.0 * float(dx[1]), 2.0 * float(dx[2]),
+                 int(bool(with_mag)), stream)
+    if err != 0:
+        raise RuntimeError(f"grad_mag kernel launch failed: cudaError {err}")
+    LAUNCHES += 1
+    return out
+
+
+def library_path() -> Path:
+    """Where the build of the current source and flags lives."""
+    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libgrad_mag_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise FileNotFoundError("nvcc not found on PATH or under CUDA_HOME; "
+                                "the grad_mag kernel needs the CUDA toolkit")
+    return path
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/grad_mag.cu`` unless this source's build exists.
+    ``verbose`` prints nvcc's report (registers, spills) to stderr."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr, file=sys.stderr)
+    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name in ("grad_mag_f32", "grad_mag_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                           ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_double, ctypes.c_int,
+                           ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB

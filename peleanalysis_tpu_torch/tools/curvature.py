@@ -1,0 +1,328 @@
+"""``curvature`` — mean/Gaussian curvature, flame normal, strain of a
+progress-variable field.
+
+Counterpart of ``peleanalysis_tpu/tools/curvature.py`` (dense path), itself
+the replacement for the reference's Src/curvature.cpp.  Semantics:
+
+  * progress var c = (s - progMin)/(progMax - progMin), min/max scanned from
+    the file unless given (curvature.cpp:137-158, 308-321)
+  * G = grad c (centered on filled ghosts); normgrad = -max(1e-14, |G|)
+    (curvature.cpp:465-484)
+  * flame normal N = G / normgrad = -G/|G| (curvature.cpp:487-501)
+  * MeanCurvature = 0.5 * div(N) (curvature.cpp:508-546), each dN_i/dx_i
+    taken after a fill of N_i from the coarser level's N_i
+  * GaussianCurvature = (G . adj(H) . G)/normgrad^4, H_ij = d G_i/dx_j as a
+    gradient of the gradient (curvature.cpp:578-673)
+  * StrainRate = -NN:grad u + div u; replicate_strain_bug=1 reproduces the
+    reference's overwrite at curvature.cpp:745 (div u only)
+  * optional strain tensor ROST_dU[xyz]d[xyz] and VelFlameNormal = u.N
+    (curvature.cpp:754-789)
+  * thresholding: Km, N, Kg, VelFlameNormal zeroed where c < threshold or
+    c > 1-threshold (curvature.cpp:560-567)
+
+Every gradient is one ``grad_mag`` call per level (the CUDA kernel on the
+card): G with its magnitude, then N_x, N_y, N_z and, with Gaussian
+curvature, G_x, G_y, G_z without it — 7 launches per level, 3 more with
+strain.  The smoothing solve (do_smooth=1) is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .. import config
+from ..amr.dense import DenseAmrState
+from ..amr.hierarchy import load_plotfile_fabs
+from ..io.plotfile import PlotfileReader
+from ..ops.dense_fill import fill_dense_multilevel
+from ..ops.grad_kernels import grad_mag
+from ..parmparse import ParmParse
+from .grad import grad_bc, refuse_sparse, refuse_unported
+
+D = 3
+
+_SMOOTH_NOT_PORTED = ("do_smooth=1 (implicit smoothing solve) is not ported "
+                      "yet (ROADMAP.md Queue 1: do_smooth and fluxMatch)")
+
+
+def _masked_minmax(vs, ms) -> torch.Tensor:
+    """Global masked (min, max) over a list of (value, mask) level arrays,
+    as one 2-element tensor (one host fetch)."""
+    los = [torch.where(m, v, float("inf")).min() for v, m in zip(vs, ms)]
+    his = [torch.where(m, v, float("-inf")).max() for v, m in zip(vs, ms)]
+    return torch.stack([torch.stack(los).min(), torch.stack(his).max()])
+
+
+def _file_minmax(pairs):
+    lo_hi = _masked_minmax([p[0] for p in pairs],
+                           [p[1] for p in pairs]).cpu()
+    return float(lo_hi[0]), float(lo_hi[1])
+
+
+def _grad_multilevel(meta, lmeta, field_list, mask_list, bc, interp,
+                     with_mag: bool = False):
+    """Per-level gradients of a multi-level scalar field, each level's ghosts
+    filled from the coarser level of the SAME derived field (the reference's
+    setCoarseFineBC pattern).  Returns per level [3, *bbox] (gx, gy, gz), or
+    [4, *bbox] with the magnitude."""
+    grown = fill_dense_multilevel(meta, lmeta, field_list, mask_list, 1,
+                                  bc, interp)
+    return [grad_mag(g.contiguous(), meta.geoms[lev].dx, with_mag)
+            for lev, g in enumerate(grown)]
+
+
+def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_gauss, do_strain,
+                   get_strain_tensor, do_velnormal, do_threshold, threshold,
+                   replicate_strain_bug):
+    """The curvature derived-field chain as a function of per-level
+    tensors (closes over metadata and flags only)."""
+    need_vel = do_strain or do_velnormal
+    L = meta.n_levels
+
+    def pipeline(data_list, mask_list, pmin, pmax):
+        def grads(fields, with_mag=False):
+            return _grad_multilevel(meta, lmeta, fields, mask_list, bc,
+                                    interp, with_mag)
+
+        scal = [d[ic: ic + 1] for d in data_list]
+        inv = 1.0 / (pmax - pmin)
+        prog = [(s - pmin) * inv for s in scal]
+        smoothed = prog
+
+        # -- gradient of the progress variable, with its magnitude -----------
+        gm = grads(smoothed, with_mag=True)
+        G = [g[:3] for g in gm]
+        normg = [-torch.clamp_min(g[3:4], 1e-14) for g in gm]
+        N = [G[lev] / normg[lev] for lev in range(L)]
+
+        # -- mean curvature: 0.5 * div(N) -------------------------------------
+        gN = [grads([N[l][d: d + 1] for l in range(L)]) for d in range(D)]
+        Km = [0.5 * sum(gN[d][lev][d: d + 1] for d in range(D))
+              for lev in range(L)]
+
+        # -- Gaussian curvature ------------------------------------------------
+        Kg = []
+        if do_gauss:
+            gG = [grads([G[l][i: i + 1] for l in range(L)]) for i in range(D)]
+            for lev in range(L):
+                H = [[gG[i][lev][j] for j in range(D)] for i in range(D)]
+                adj = [[H[(i + 1) % 3][(j + 1) % 3] * H[(i + 2) % 3][(j + 2) % 3]
+                        - H[(i + 1) % 3][(j + 2) % 3] * H[(i + 2) % 3][(j + 1) % 3]
+                        for j in range(D)] for i in range(D)]
+                Gl = G[lev]
+                num = 0.0
+                for i in range(D):
+                    for j in range(D):
+                        num = num + Gl[i] * adj[i][j] * Gl[j]
+                # normg**4 as (n*n)*(n*n), the JAX integer_pow order; it
+                # underflows to 0 in float32 where |G| = 0 (0/0 there, as in
+                # the JAX reference)
+                n2 = normg[lev][0] * normg[lev][0]
+                Kg.append((num / (n2 * n2))[None])
+
+        # -- strain ------------------------------------------------------------
+        SR, ROST, VN = [], [], []
+        if need_vel:
+            vel = [torch.stack([d[k] for k in iv], dim=0) for d in data_list]
+            if len(iv) == 2:  # planar: zero z component
+                vel = [torch.cat([v, torch.zeros_like(v[:1])], dim=0)
+                       for v in vel]
+        if do_strain:
+            gU = [grads([vel[l][i: i + 1] for l in range(L)])
+                  for i in range(D)]
+            for lev in range(L):
+                gradU = [[gU[i][lev][j] for j in range(D)] for i in range(D)]
+                divu = gradU[0][0] + gradU[1][1] + gradU[2][2]
+                if replicate_strain_bug:
+                    sr = divu  # reference's overwrite at curvature.cpp:745
+                else:
+                    nn = 0.0
+                    for i in range(D):
+                        for j in range(D):
+                            nn = nn + gradU[i][j] * N[lev][i] * N[lev][j]
+                    sr = -nn + divu
+                SR.append(sr[None])
+                if get_strain_tensor:
+                    ROST.append(torch.stack(
+                        [gradU[i][j] for i in range(D) for j in range(D)]))
+        if do_velnormal:
+            VN = [torch.sum(vel[lev] * N[lev], dim=0, keepdim=True)
+                  for lev in range(L)]
+
+        # -- thresholding ------------------------------------------------------
+        outs = []
+        for lev in range(L):
+            Nl = N[lev]
+            if do_threshold:
+                bad = ((prog[lev] < threshold)
+                       | (prog[lev] > 1.0 - threshold))
+                Km[lev] = Km[lev].masked_fill(bad, 0.0)
+                Nl = Nl.masked_fill(bad, 0.0)
+                if do_gauss:
+                    Kg[lev] = Kg[lev].masked_fill(bad, 0.0)
+                if do_velnormal:
+                    VN[lev] = VN[lev].masked_fill(bad, 0.0)
+            comps = [data_list[lev][ic: ic + 1]]
+            if need_vel:
+                comps.append(vel[lev])
+            comps += [prog[lev], smoothed[lev], Km[lev], Nl]
+            if do_gauss:
+                comps.append(Kg[lev])
+            if do_strain:
+                comps.append(SR[lev])
+            if get_strain_tensor:
+                comps.append(ROST[lev])
+            if do_velnormal:
+                comps.append(VN[lev])
+            outs.append(torch.cat(comps, dim=0))
+        return outs
+
+    return pipeline
+
+
+def compute_curvature_dense(
+    dstate: DenseAmrState,
+    progress_name: str = "temp",
+    prog_min: Optional[float] = None,
+    prog_max: Optional[float] = None,
+    do_smooth: bool = False,
+    do_gauss: bool = True,
+    do_strain: bool = False,
+    get_strain_tensor: bool = False,
+    do_velnormal: bool = False,
+    do_threshold: bool = False,
+    threshold: float = 1.0e-4,
+    use_file_minmax: bool = True,
+    replicate_strain_bug: bool = False,
+    sym_dir: Optional[Sequence[int]] = None,
+    interp: str = "linear",
+) -> DenseAmrState:
+    if do_smooth:
+        raise NotImplementedError(_SMOOTH_NOT_PORTED)
+    meta = dstate.meta
+    bc = grad_bc([False] * D, sym_dir)
+    ic = dstate.comp(progress_name)
+    need_vel = do_strain or do_velnormal
+    # DIM=2 plotfiles carry no z_velocity: planar flow, zero-z promotion
+    vel_names = [n for n in ("x_velocity", "y_velocity", "z_velocity")
+                 if n in dstate.names]
+    if need_vel and len(vel_names) < 2:
+        raise ValueError("do_strain/do_velnormal need velocity components "
+                         f"(x/y/z_velocity); plotfile has {dstate.names}")
+    iv = [dstate.comp(n) for n in vel_names] if need_vel else None
+    masks = [dstate.in_level_mask(l) for l in range(meta.n_levels)]
+
+    # progress min/max scan over valid (uncovered, in-box) cells.  With
+    # use_file_minmax (the reference default, curvature.cpp:139-148) the file
+    # is ALWAYS scanned and user-supplied bounds only widen the range
+    if not use_file_minmax and (prog_min is None or prog_max is None):
+        raise ValueError("use_file_minmax=False requires prog_min/prog_max")
+    if use_file_minmax or prog_min is None or prog_max is None:
+        lo, hi = _file_minmax([(dstate.data[lev][ic], dstate.valid_mask(lev))
+                               for lev in range(meta.n_levels)])
+        prog_min = lo if prog_min is None else min(prog_min, lo)
+        prog_max = hi if prog_max is None else max(prog_max, hi)
+    if prog_min >= prog_max:
+        raise ValueError("progMin must be less than progMax")
+
+    pipeline = _make_pipeline(
+        meta, dstate.lmeta, ic, iv, bc, interp, do_gauss, do_strain,
+        get_strain_tensor, do_velnormal, do_threshold, threshold,
+        replicate_strain_bug)
+    dt, dev = dstate.dtype, dstate.device
+    out_levels = pipeline(list(dstate.data), masks,
+                          torch.full((), prog_min, dtype=dt, device=dev),
+                          torch.full((), prog_max, dtype=dt, device=dev))
+    names = _output_names(progress_name, vel_names, need_vel, do_gauss,
+                          do_strain, get_strain_tensor, do_velnormal)
+    return dstate.with_data(names, out_levels)
+
+
+def _output_names(progress_name, vel_names, need_vel, do_gauss, do_strain,
+                  get_strain_tensor, do_velnormal):
+    """Output component order of the curvature chain (curvature.cpp:796-829)."""
+    names = [progress_name]
+    if need_vel:
+        names += vel_names
+    names += ["Progress", "SmoothedProgress",
+              f"MeanCurvature_{progress_name}",
+              f"FlameNormalX_{progress_name}",
+              f"FlameNormalY_{progress_name}",
+              f"FlameNormalZ_{progress_name}"]
+    if do_gauss:
+        names.append(f"GaussianCurvature_{progress_name}")
+    if do_strain:
+        names.append(f"StrainRate_{progress_name}")
+    if get_strain_tensor:
+        names += [f"ROST_dU{m}d{n}" for m in "xyz" for n in "xyz"]
+    if do_velnormal:
+        names.append("VelFlameNormal")
+    return names
+
+
+def main(args: dict) -> None:
+    """CLI: curvature infile=<plt> [progressName=temp] [progMin= progMax=]
+    [do_gaussCurv=1] [do_strain=0] [useFileMinMax=1] [getStrainTensor=0]
+    [do_velnormal=0] [threshold_prog=0] [threshold=1e-4]
+    [replicate_strain_bug=0] [is_per=0 0 0] [sym_dir=0 0 0]
+    [cf_interp=quadratic] [finestLevel=] [force_dense=0] [outfile=...]
+    [device=cuda|cpu]"""
+    pp = ParmParse(args)
+    infile = pp.get_str("infile")
+    progress_name = pp.query_str("progressName", "temp")
+    do_strain = pp.query_bool("do_strain", False)
+    do_velnormal = pp.query_bool("do_velnormal", False)
+    is_per = pp.query_int_list("is_per", [0, 0, 0])
+    names = [progress_name]
+    if do_strain or do_velnormal:
+        names += [n for n in ("x_velocity", "y_velocity", "z_velocity")
+                  if n in PlotfileReader(infile).var_names]
+    # Aux_Variables: extra plotfile comps copied through to the output
+    # (curvature.cpp:103-106,182-190)
+    aux_names = [n for n in pp.query_str_list("Aux_Variables", [])
+                 if n not in names]
+    names += aux_names
+    # floorIt only gates the reference's min/max printout (curvature.cpp:139)
+    pp.query_int("floorIt", 0)
+    use_file_minmax = pp.query_bool("useFileMinMax", True)
+    if not use_file_minmax:
+        if not (pp.contains("progMin") and pp.contains("progMax")):
+            raise ValueError("useFileMinMax=0 requires progMin= and progMax=")
+    device = config.get_device(pp.query_str("device", "cuda"))
+    refuse_unported(pp)
+    do_smooth = pp.query_bool("do_smooth", False)
+    kwargs = dict(
+        prog_min=pp.query_float("progMin", None),
+        prog_max=pp.query_float("progMax", None),
+        do_smooth=do_smooth,
+        do_gauss=pp.query_bool("do_gaussCurv", True),
+        get_strain_tensor=pp.query_bool("getStrainTensor", False),
+        do_threshold=pp.query_bool("threshold_prog", False),
+        threshold=pp.query_float(
+            "threshold_value", pp.query_float("threshold", 1.0e-4)),
+        use_file_minmax=use_file_minmax,
+        replicate_strain_bug=pp.query_bool("replicate_strain_bug", False),
+        sym_dir=pp.query_int_list("sym_dir", [0, 0, 0]),
+        interp=pp.query_str("cf_interp", "quadratic"),
+    )
+    if do_smooth:
+        raise NotImplementedError(_SMOOTH_NOT_PORTED)
+
+    meta, names, fabs = load_plotfile_fabs(
+        infile, names=names, max_level=pp.query_int("finestLevel", None),
+        is_periodic=[bool(p) for p in is_per])
+    if not pp.query_bool("force_dense", False):
+        refuse_sparse(meta, [meta.n_levels - 1])
+    dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
+                                           config.compute_dtype)
+    out = compute_curvature_dense(dstate, progress_name, do_strain=do_strain,
+                                  do_velnormal=do_velnormal, **kwargs)
+    if aux_names:
+        aux_idx = [dstate.comp(n) for n in aux_names]
+        data = [torch.cat([out.data[lev], dstate.data[lev][aux_idx]], dim=0)
+                for lev in range(meta.n_levels)]
+        out = out.with_data(out.names + aux_names, data)
+    outfile = pp.query_str("outfile", infile + "_K")
+    out.to_plotfile(outfile)
+    print(f"wrote {outfile}")

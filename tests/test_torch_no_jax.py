@@ -1,0 +1,80 @@
+"""The port never imports JAX or the JAX package, directly or through
+another module: a child interpreter that refuses those imports still
+imports every module of the port and runs its CLI."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import peleanalysis_tpu_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+BLOCKER = r'''
+import importlib, importlib.abc, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        # the exact name or a dotted child; a bare prefix match would also
+        # refuse peleanalysis_tpu_torch
+        for banned in ("jax", "jaxlib", "peleanalysis_tpu"):
+            if name == banned or name.startswith(banned + "."):
+                raise ImportError(f"refused import of {name}")
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "peleanalysis_tpu"):
+        del sys.modules[mod]
+sys.meta_path.insert(0, Refuse())
+'''
+
+
+def _port_modules():
+    pkg = peleanalysis_tpu_torch
+    names = [pkg.__name__]
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        if not info.name.endswith("__main__"):
+            names.append(info.name)
+    return names
+
+
+def _run(code, *argv):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", BLOCKER + code, *argv],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_blocker_refuses_jax_but_not_the_port():
+    res = _run("import importlib\n"
+               "for m in ('jax', 'peleanalysis_tpu', "
+               "'peleanalysis_tpu.cli'):\n"
+               "    try:\n"
+               "        importlib.import_module(m)\n"
+               "    except ImportError:\n"
+               "        continue\n"
+               "    raise SystemExit(f'{m} imported')\n"
+               "import peleanalysis_tpu_torch\n")
+    assert res.returncode == 0, res.stderr
+
+
+def test_every_port_module_imports_without_jax():
+    mods = _port_modules()
+    assert "peleanalysis_tpu_torch.ops.grad_kernels" in mods
+    assert "peleanalysis_tpu_torch.tools.curvature" in mods
+    res = _run("import importlib, sys\n"
+               "for m in sys.argv[1:]:\n"
+               "    importlib.import_module(m)\n"
+               "bad = [m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'peleanalysis_tpu')]\n"
+               "assert not bad, bad\n", *mods)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cli_help_runs_without_jax():
+    res = _run("import runpy, sys\n"
+               "sys.argv = ['peleanalysis_tpu_torch', '--help']\n"
+               "runpy.run_module('peleanalysis_tpu_torch', "
+               "run_name='__main__')\n")
+    assert res.returncode == 0, res.stderr
+    assert "grad" in res.stdout and "curvature" in res.stdout
