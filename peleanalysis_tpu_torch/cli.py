@@ -2,7 +2,8 @@
 key=value... [inputs]``.
 
 The same ParmParse key surface as ``python -m peleanalysis_tpu``, for the
-tools ported so far (``grad``, ``curvature``).  Extra keys:
+tools ported so far (``grad``, ``curvature``, ``stream``,
+``sampleStreamlines``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions) and the global ``dtype=float32|float64``.
 """
@@ -20,6 +21,8 @@ from .parmparse import _ACTIVE, parse_argv
 TOOLS = {
     "grad": ".tools.grad",
     "curvature": ".tools.curvature",
+    "stream": ".tools.stream",
+    "sampleStreamlines": ".tools.sample_streamlines",
 }
 
 

@@ -4,10 +4,8 @@ goes through.
 
 Counterpart of ``peleanalysis_tpu/ops/pallas_kernels.py`` (``grad_mag``,
 ``grad_mag_pallas``, ``_grad_mag_kernel``).  The kernel source is
-``csrc/grad_mag.cu``; it is compiled with ``nvcc`` on first use into
-``build/peleanalysis_tpu_torch/`` at the repository root (a file named by
-the hash of the source and flags, so an edited source rebuilds), bound
-through its plain C entry points with ``ctypes``.
+``csrc/grad_mag.cu``; ``ops/cuda_build.py`` compiles it with ``nvcc`` on
+first use and binds its plain C entry points with ``ctypes``.
 
 ``grad_mag`` sends a CPU tensor to ``grad_mag_torch`` and a CUDA tensor to
 the kernel.  Nothing falls back: a failed build or launch raises.
@@ -15,27 +13,20 @@ the kernel.  Nothing falls back: a failed build or launch raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import sys
 from pathlib import Path
 from typing import Sequence
 
 import torch
 
+from . import cuda_build
+from .cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401 (public names)
 from .stencil import centered_gradient, magnitude
 
 # kernel launches since import (or since a caller reset it): a run shows
 # that its gradients went through the kernel by how far this moved
 LAUNCHES = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "grad_mag.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "peleanalysis_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
-
+_NAME = "grad_mag"
 _LIB = None
 
 
@@ -96,52 +87,21 @@ def _launch(grown: torch.Tensor, dx: Sequence[float],
 
 def library_path() -> Path:
     """Where the build of the current source and flags lives."""
-    h = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgrad_mag_{h.hexdigest()[:16]}.so"
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    path = os.path.join(home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise FileNotFoundError("nvcc not found on PATH or under CUDA_HOME; "
-                                "the grad_mag kernel needs the CUDA toolkit")
-    return path
+    return cuda_build.library_path(_NAME)
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile ``csrc/grad_mag.cu`` unless this source's build exists.
-    ``verbose`` prints nvcc's report (registers, spills) to stderr."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr, file=sys.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
-    return out
+    """Compile ``csrc/grad_mag.cu`` unless this source's build exists."""
+    return cuda_build.build(_NAME, verbose)
 
 
 def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("grad_mag_f32", "grad_mag_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                           ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
-                           ctypes.c_double, ctypes.c_double, ctypes.c_int,
-                           ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _LIB = lib
+        sig = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+               ctypes.c_int64, ctypes.c_int64, ctypes.c_double,
+               ctypes.c_double, ctypes.c_double, ctypes.c_int,
+               ctypes.c_void_p]
+        _LIB = cuda_build.load(_NAME, {"grad_mag_f32": sig,
+                                       "grad_mag_f64": sig})
     return _LIB

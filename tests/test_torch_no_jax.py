@@ -62,6 +62,10 @@ def test_every_port_module_imports_without_jax():
     mods = _port_modules()
     assert "peleanalysis_tpu_torch.ops.grad_kernels" in mods
     assert "peleanalysis_tpu_torch.tools.curvature" in mods
+    for m in ("ops.cuda_build", "io.mef", "io.stream_data",
+              "stream.march_kernels", "stream.trace", "stream.surface",
+              "tools.stream", "tools.sample_streamlines"):
+        assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
                "    importlib.import_module(m)\n"
@@ -78,3 +82,4 @@ def test_cli_help_runs_without_jax():
                "run_name='__main__')\n")
     assert res.returncode == 0, res.stderr
     assert "grad" in res.stdout and "curvature" in res.stdout
+    assert "stream" in res.stdout and "sampleStreamlines" in res.stdout
