@@ -26,10 +26,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                warm run of each tool, peak device memory and a per-layer
                split (read / device compute / write)
   5b stream  - the same case seeded from a 130k-node sphere MEF through
-               `stream` and `sampleStreamlines`, with the same measurements
+               `stream` and `sampleStreamlines`, with the same measurements,
+               and the trace under torch.profiler (device-to-host copy and
+               march kernel device times), float64 and bfloat16-packed
   6 cpu      - compute_grad_dense, compute_curvature_dense and
                trace_streamlines of the repo case on the card vs on the CPU
-               (plain versions)
+               (plain versions); every marchEngine name launches the march
+               kernel on the card, and "torch" is refused there
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -573,9 +576,31 @@ def phase_prod(tmp: str, dev) -> None:
 
 
 # -- phase 5b -------------------------------------------------------------------
+def profiled_trace(fn) -> dict:
+    """fn() once under torch.profiler: its host wall time and the device
+    time of its device-to-host copies and of its march kernel launches."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+
+    def device_ms(part: str) -> float:
+        return sum(e.device_time_total for e in ev if part in e.key) / 1e3
+
+    return {"wall_s": wall, "d2h_ms": device_ms("Memcpy DtoH"),
+            "march_kernel_ms": device_ms("march_kernel")}
+
+
 def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
     """Read, trace (fill + gradient + march + sampling + the copy of the
-    lines to the host) and write of the stream tool, timed apart."""
+    lines to the host) and write of the stream tool, timed apart; then the
+    trace under the profiler, exact in float64 and with a bfloat16 field
+    and its default lossy line packing."""
     t0 = time.perf_counter()
     meta, names, fabs = load_plotfile_fabs(plt, names=["temp", "density"])
     ds = DenseAmrState.from_level_fabs(meta, names, fabs, dev, torch.float64)
@@ -593,8 +618,15 @@ def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
     t3 = time.perf_counter()
     write_tecplot_lines(os.path.join(tmp, "split_lines.dat"), names, lines)
     t4 = time.perf_counter()
+    kw = dict(trace_field="temp", sample_names=["temp", "density"])
+    prof = {
+        "float64": profiled_trace(lambda: trace_streamlines(
+            ds, seeds.positions(), 51, 0.5, **kw)),
+        "bfloat16_packed": profiled_trace(lambda: trace_streamlines(
+            ds, seeds.positions(), 51, 0.5, march_dtype="bfloat16", **kw))}
     return {"read_s": t1 - t0, "trace_s": t2 - t1,
-            "stream_data_write_s": t3 - t2, "tecplot_write_s": t4 - t3}
+            "stream_data_write_s": t3 - t2, "tecplot_write_s": t4 - t3,
+            "profiled_trace": prof}
 
 
 def phase_stream_prod(tmp: str, dev) -> None:
@@ -691,6 +723,20 @@ def phase_stream_cpu(stream: dict, dev) -> None:
                                  f"{pos}, density {val}")
         out[mode] = {"lines": len(seeds), "max_pos_err": pos,
                      "max_density_err_over_scale": val}
+    # every marchEngine name marches a card state through the kernel;
+    # "torch" (the plain version) is refused there
+    kw = dict(n_rk_steps=5, h_rk=0.5, trace_field="temp")
+    for name in ("auto", "cuda", "pallas", "xla"):
+        n0 = mk.LAUNCHES
+        trace_streamlines(card, seeds, march_engine=name, **kw)
+        if mk.LAUNCHES == n0:
+            raise AssertionError(f"march_engine={name}: no kernel launch")
+    try:
+        trace_streamlines(card, seeds, march_engine="torch", **kw)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("march_engine=torch ran on a CUDA state")
     emit({"phase": "stream_card_vs_cpu", "tolerance": "positions 1e-12 of "
           "the unit domain, density 1e-12 of its largest value",
           "modes": out})

@@ -30,11 +30,14 @@ import torch
 from ..amr.dense import DenseAmrState
 from ..ops.dense_fill import fill_dense_arrays
 from ..ops.grad_kernels import grad_mag
-from .march_kernels import march, march_torch, prepare_field
+from .march_kernels import march, prepare_field
 
-# marchEngine names; the JAX package's "pallas" and "xla" are aliases
-ENGINES = {"auto": "auto", "cuda": "cuda", "torch": "torch",
-           "pallas": "cuda", "xla": "torch"}
+# marchEngine names -> the device type the state must be on (None: any).
+# Whatever the name, the march runs the kernel on a CUDA state and its plain
+# version on a CPU state; the JAX package's "pallas" and "xla" compute the
+# same march and are accepted so its command lines run unchanged
+ENGINES = {"auto": None, "pallas": None, "xla": None,
+           "cuda": "cuda", "torch": "cpu"}
 
 
 def assign_seeds_to_levels(dstate: DenseAmrState,
@@ -180,9 +183,9 @@ def trace_streamlines(
     (stream.cpp:700).  march_dtype="bfloat16" stores the marched vector
     field in bfloat16 (positions and arithmetic stay in the state dtype);
     "float32", "float64" or None keep the state dtype.  march_engine:
-    "auto" (the kernel on a CUDA state, the plain version on a CPU state),
-    "cuda" (the kernel; a CUDA state only) or "torch" (the plain version);
-    "pallas" and "xla" are aliases of "cuda" and "torch".
+    "auto", "pallas" or "xla" (the kernel on a CUDA state, the plain
+    version on a CPU state), "cuda" (the kernel: a CUDA state only) or
+    "torch" (the plain version: a CPU state only).
     fetch_compress: None = the JAX default (lossy packing exactly when the
     field is bfloat16 and nRKh <= 320), True / False force it.
     """
@@ -193,9 +196,12 @@ def trace_streamlines(
     if march_engine not in ENGINES:
         raise ValueError(f"march_engine={march_engine!r}: expected one of "
                          f"{', '.join(ENGINES)}")
-    engine = ENGINES[march_engine]
-    if engine == "cuda" and dstate.device.type != "cuda":
-        raise ValueError("march_engine=cuda needs a state on a CUDA device")
+    need = ENGINES[march_engine]
+    if need is not None and dstate.device.type != need:
+        raise ValueError(f"march_engine={march_engine} needs a state on "
+                         f"device={need}: a CUDA state always marches "
+                         "through the kernel, a CPU state through the plain "
+                         "version")
     if march_dtype in ("float32", "float64", "none"):
         march_dtype = None
     if march_dtype not in (None, "bfloat16"):
@@ -271,9 +277,8 @@ def trace_streamlines(
         # +- as ONE march over doubled seeds (per-seed direction)
         dirs = torch.cat([torch.ones(ns, dtype=state_dt, device=dev),
                           -torch.ones(ns, dtype=state_dt, device=dev)])
-        run = march_torch if engine == "torch" else march
-        pos2, _ = run(field, plo, dx, h_phys, torch.cat([ss, ss]), n_half,
-                      dirs)
+        pos2, _ = march(field, plo, dx, h_phys, torch.cat([ss, ss]), n_half,
+                        dirs)
         pos_p, pos_m = pos2[:, :ns], pos2[:, ns:]
         path = torch.cat([pos_m.flip(0)[:-1], pos_p]).transpose(0, 1)
         vals = (_sample_fields(fields, plo, dx, path.contiguous()) if nf

@@ -63,13 +63,6 @@ def sample_onto_lines(ds: DenseAmrState, lines: np.ndarray,
     return out
 
 
-def sample_onto_lines_sparse(state, lines: np.ndarray, names) -> np.ndarray:
-    raise NotImplementedError(
-        "sparse-refinement sampling is not ported yet (ROADMAP.md Queue 1 "
-        "item 7: sparse refinement); pass force_dense=1 to sample the "
-        "dense path")
-
-
 def main(args: dict) -> None:
     """CLI: sampleStreamlines plotfile= pathFile= [comps=... | sComp= nComp=]
     [nCompsPerPass=-1] [streamSampleFile= | outfile= | outFile=]

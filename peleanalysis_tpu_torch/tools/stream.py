@@ -46,7 +46,7 @@ def get_seeds(pp: ParmParse):
 def write_tecplot_lines(path: str, names, lines: np.ndarray) -> None:
     """Per-line Tecplot zones (dump_ml_streamline_data analog,
     stream.cpp:2227-2302): the JAX package's ``%.9g`` text, one ``%``
-    format per line (about 4x its numpy ``np.char`` path)."""
+    format per line, byte-identical to its numpy ``np.char`` path."""
     nl, st, nc = lines.shape
     zone = (" ".join(["%.9g"] * nc) + "\n") * st
     with open(path, "wb") as f:
@@ -60,8 +60,9 @@ def main(args: dict) -> None:
     """CLI: stream plotfile= (isoFile=<MEF> | seedLoc=x y z |
     seedRakeL=.. seedRakeR=.. [seedRakeNum=10]) [progressName=temp |
     traceAlongV=1] [nRKsteps=51] [hRK=0.1] [aux_comps=...] [nGrow=]
-    [bounds=lo..hi..] [marchEngine=auto|cuda|torch (pallas|xla alias
-    cuda|torch)] [marchPrecision=bfloat16] [fetch_precision=auto|exact|
+    [bounds=lo..hi..] [marchEngine=auto|pallas|xla|cuda|torch (the
+    kernel on the card, the plain version on the CPU; cuda and torch only
+    assert the device)] [marchPrecision=bfloat16] [fetch_precision=auto|exact|
     compressed] (streamFile=<StreamData out> and/or outFile=<Tecplot out>)
     [sd_version=0|1.0] [buildAltSurf=1 altVal= dt= thickCompName= thickLo=
     thickHi= strainCompName= TCompName= TVal= addAngle= altIsoFile=]

@@ -15,6 +15,8 @@ Tolerances:
     for sampled fields;
   * ``alive`` flags: identical.
 """
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -222,12 +224,18 @@ def test_trace_engines_agree_on_cpu(plotfiles):
     seeds = _seeds(8)
     kw = dict(n_rk_steps=11, h_rk=0.5, trace_field="progress")
     auto = trace_streamlines(pds, seeds, **kw)
-    for name in ("torch", "xla"):
+    # every name but "cuda" marches a CPU state through the plain version
+    for name in ("torch", "xla", "pallas"):
         np.testing.assert_array_equal(
             trace_streamlines(pds, seeds, march_engine=name, **kw), auto)
-    for name in ("cuda", "pallas"):     # the kernel needs a CUDA state
-        with pytest.raises(ValueError, match="CUDA"):
-            trace_streamlines(pds, seeds, march_engine=name, **kw)
+    with pytest.raises(ValueError, match="device=cuda"):
+        trace_streamlines(pds, seeds, march_engine="cuda", **kw)
+    # a CUDA state never takes the plain version: "torch" is refused before
+    # any tensor is touched
+    on_card = copy.copy(pds)
+    on_card.device = torch.device("cuda")
+    with pytest.raises(ValueError, match="device=cpu"):
+        trace_streamlines(on_card, seeds, march_engine="torch", **kw)
     with pytest.raises(ValueError, match="march_engine"):
         trace_streamlines(pds, seeds, march_engine="fused", **kw)
 

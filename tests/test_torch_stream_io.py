@@ -35,8 +35,6 @@ from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (make_amr_hierarchy,
                                             write_synthetic_plotfile)
 from peleanalysis_tpu_torch.tools import grad as port_grad_tool
-from peleanalysis_tpu_torch.tools.sample_streamlines import \
-    sample_onto_lines_sparse
 
 TOL = 1e-12
 
@@ -327,9 +325,10 @@ def test_stream_refusals(case, tmp_path, monkeypatch):
         cli.main(["stream", *common, out])
     assert not (tmp_path / "sd").exists()
     assert cli.main(["stream", *common, out, "force_dense=1"]) == 0
+    samp = ["sampleStreamlines", f"plotfile={plt}",
+            f"pathFile={tmp_path / 'sd'}", "comps=temp",
+            f"streamSampleFile={tmp_path / 'sd2'}", "device=cpu"]
     with pytest.raises(NotImplementedError, match="sparse refinement"):
-        cli.main(["sampleStreamlines", f"plotfile={plt}",
-                  f"pathFile={tmp_path / 'sd'}", "comps=temp",
-                  f"streamSampleFile={tmp_path / 'sd2'}", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        sample_onto_lines_sparse(None, np.zeros((1, 3, 3)), ["temp"])
+        cli.main(samp)
+    assert not (tmp_path / "sd2").exists()
+    assert cli.main([*samp, "force_dense=1"]) == 0
