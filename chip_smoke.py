@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-check each against its plain PyTorch version, and drive the grad,
-curvature, stream and sampleStreamlines tools through their CLI on
-synthetic 3-level hierarchies.
+check each against its plain PyTorch version, drive the grad, curvature,
+stream, sampleStreamlines and isosurface tools through their CLI on
+synthetic 3-level hierarchies, and time the main path (grad, curvature,
+isosurface).
 
     python3 chip_smoke.py
 
@@ -14,8 +15,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                float64, with and without the magnitude: gradients bitwise,
                magnitude within 1 ulp; median times over 20 runs
   3b march   - stream_march kernel vs march_torch on the card: float64,
-               float32 and bfloat16 fields, boundary-exit lines up to the
-               production line count; median times
+               float32 (float32 and float64 positions) and bfloat16 fields,
+               boundary-exit lines up to the production line count; median
+               times
   4 main     - the repo's 3-level case (64^3 -> 120^3 finest patch) through
                `grad` and `curvature` (cli.main), cold then 3 warm runs;
                kernel launch counts, finiteness and the analytic gradient
@@ -33,6 +35,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                trace_streamlines of the repo case on the card vs on the CPU
                (plain versions); every marchEngine name launches the march
                kernel on the card, and "torch" is refused there
+  7 iso      - `isosurface` on the repo case at temp = 1000 K: a closed
+               watertight sphere (Euler characteristic 2, area and radius
+               bounds), every large tensor of the extraction on the card
+  7b iso cpu - the same extraction on the card and on the CPU: identical
+               elements, nodes within 1e-12 of each column's scale
+  7c iso prod- the 19.5 M-cell case: warm CLI wall, read / extract / write,
+               peak device memory, host waits per extraction and the
+               extraction's device time by stage (torch.profiler)
+  8 main path- grad, curvature and isosurface of one float32 state (the
+               JAX bench's composite), median CUDA-event time of each, at
+               the repo case and at production size
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -45,14 +58,19 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from peleanalysis_tpu_torch import cli
 from peleanalysis_tpu_torch.amr.dense import DenseAmrState
 from peleanalysis_tpu_torch.amr.hierarchy import load_plotfile_fabs
+from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
 from peleanalysis_tpu_torch.io.mef import MEF, read_mef, write_mef
 from peleanalysis_tpu_torch.io.stream_data import (StreamData,
                                                    compute_inside_nodes,
@@ -169,9 +187,10 @@ def phase_kernel(dev) -> dict:
 
 
 # -- phase 3b -------------------------------------------------------------------
-# (field dtype, state dtype) of the march kernel's four variants
+# (field dtype, position dtype) of the march kernel's five variants
 MARCH_VARIANTS = {"f64": (torch.float64, torch.float64),
                   "f32": (torch.float32, torch.float32),
+                  "f32_f64": (torch.float32, torch.float64),
                   "bf16_f64": (torch.bfloat16, torch.float64),
                   "bf16_f32": (torch.bfloat16, torch.float32)}
 # positions, as a fraction of the unit domain: the same operations in the
@@ -268,8 +287,8 @@ def phase_march_kernel(dev) -> dict:
                 times[var] = (case["ms"], case["plain_ms"])
             cases.append(case)
     emit({"phase": "march_kernel_vs_plain", "tolerance": "identical alive "
-          "flags; positions within 1e-12 (float64 state) or 1e-5 (float32 "
-          "state) of the unit domain", "cases": cases})
+          "flags; positions within 1e-12 (float64 positions) or 1e-5 "
+          "(float32 positions) of the unit domain", "cases": cases})
     ms, plain_ms = times["f64"]
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
@@ -384,7 +403,7 @@ def write_seed_mef(path: str, n_theta: int, n_phi: int, extra=()) -> int:
     return n
 
 
-def run_stream_tool(tool: str, args, expect) -> float:
+def run_tool_counted(tool: str, args, expect) -> float:
     """One CLI run; expect = (grad_mag launches, stream_march launches)."""
     g0, m0 = gk.LAUNCHES, mk.LAUNCHES
     t0 = time.perf_counter()
@@ -506,11 +525,11 @@ def phase_stream(tmp: str) -> dict:
     # the stream path's run: every count set to 0 just before, read just
     # after; one grad_mag and one march launch per seeded level
     gk.LAUNCHES = mk.LAUNCHES = 0
-    cold = {k: run_stream_tool(*v) for k, v in runs.items()}
+    cold = {k: run_tool_counted(*v) for k, v in runs.items()}
     launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
     if launches != {"grad_mag": L, "stream_march": 2 * L}:
         raise AssertionError(f"stream path launches {launches}")
-    warm = {k: [run_stream_tool(*v) for _ in range(2)]
+    warm = {k: [run_tool_counted(*v) for _ in range(2)]
             for k, v in runs.items()}
     names = ["X", "Y", "Z", "temp", "density"]
     lines = check_stream_data(sd_grad, n_seeds, names)
@@ -647,9 +666,9 @@ def phase_stream_prod(tmp: str, dev) -> None:
                                    f"streamSampleFile={sd2}"], (0, 0)))
     res = {}
     for tool, args, expect in runs:
-        cold = run_stream_tool(tool, args, expect)
+        cold = run_tool_counted(tool, args, expect)
         torch.cuda.reset_peak_memory_stats()
-        warm = run_stream_tool(tool, args, expect)
+        warm = run_tool_counted(tool, args, expect)
         res[tool] = {"cold_s": cold, "warm_s": warm,
                      "max_memory_allocated": torch.cuda.max_memory_allocated()}
     check_stream_data(sd, n_seeds, ["X", "Y", "Z", "temp", "density"])
@@ -742,6 +761,233 @@ def phase_stream_cpu(stream: dict, dev) -> None:
           "modes": out})
 
 
+# -- phase 7 --------------------------------------------------------------------
+ISO_VAL = 1000.0
+# temp = 1000 K on testing.default_fields' Gaussian 300 + 1500 exp(-r^2/w^2)
+ISO_R = 0.15 * np.sqrt(np.log(1500.0 / 700.0))
+# the JAX package's sphere tests hold the area to 5% at r = 4 cells; the repo
+# case's sphere has r = 33.5 finest cells
+AREA_TOL = 0.01
+
+
+def sphere_checks(mef: MEF, h: float) -> dict:
+    """The temp = 1000 K surface of the repo case is a closed sphere on the
+    finest level: every edge borders exactly two triangles, V - E + F = 2,
+    the area is within AREA_TOL of 4 pi r^2 and every node within one
+    finest cell h of the radius (degenerate triangles left out)."""
+    e = mef.elements
+    good = (e[:, 0] != e[:, 1]) & (e[:, 1] != e[:, 2]) & (e[:, 0] != e[:, 2])
+    edges, counts = np.unique(np.sort(np.concatenate(
+        [e[good][:, [0, 1]], e[good][:, [1, 2]], e[good][:, [2, 0]]]),
+        axis=1), axis=0, return_counts=True)
+    euler = len(np.unique(e[good])) - len(edges) + int(good.sum())
+    exact = 4 * np.pi * ISO_R ** 2
+    area_err = abs(mef.total_area() - exact) / exact
+    radius_err = float(np.abs(np.linalg.norm(mef.positions() - 0.5, axis=1)
+                              - ISO_R).max())
+    if not (counts == 2).all():
+        raise AssertionError(f"{int((counts != 2).sum())} edges do not "
+                             "border exactly two triangles")
+    if euler != 2:
+        raise AssertionError(f"Euler characteristic {euler}, not 2")
+    if not area_err <= AREA_TOL:
+        raise AssertionError(f"area off 4 pi r^2 by {area_err}")
+    if not radius_err <= h:
+        raise AssertionError(f"a node is {radius_err} off the radius")
+    return {"nodes": mef.n_nodes, "triangles": mef.n_elts,
+            "degenerate": int((~good).sum()), "euler": euler,
+            "area_rel_err": area_err, "area_tol": AREA_TOL,
+            "max_radius_err_over_h": radius_err / h}
+
+
+class HostTensors(TorchDispatchMode):
+    """Records every op whose output holds at least ``large`` elements on
+    another device type than ``device``'s."""
+
+    def __init__(self, large: int, device: torch.device):
+        super().__init__()
+        self.large, self.device = large, device
+        self.n_large, self.off_card = 0, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor) and t.numel() >= self.large:
+                self.n_large += 1
+                if t.device.type != self.device.type:
+                    self.off_card.append(str(func))
+        return out
+
+
+def phase_iso(tmp: str, dev) -> dict:
+    plt = os.path.join(tmp, "plt_repo")
+    base = os.path.join(tmp, "iso_repo")
+    args = [f"infile={plt}", f"isoVal={ISO_VAL:g}", f"outfile_base={base}"]
+    # the isosurface path's run: every count set to 0 just before, read
+    # just after
+    gk.LAUNCHES = mk.LAUNCHES = 0
+    cold = run_tool_counted("isosurface", args, (0, 0))
+    launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
+    warm = [run_tool_counted("isosurface", args, (0, 0)) for _ in range(3)]
+    meta = load_plotfile_fabs(plt, names=["temp"])[0]
+    mef = read_mef(base + ".mef")
+    check = sphere_checks(mef, meta.geoms[-1].dx[0])
+    # every tensor the size of a level volume, made by a warm extraction
+    # (the per-state inputs exist), lies on the card
+    ds = DenseAmrState.from_plotfile(plt, dev, names=["temp"],
+                                     dtype=torch.float64)
+    first = extract_isosurface(ds, "temp", ISO_VAL)
+    large = min(int(np.prod(lm.bbox.shape)) for lm in ds.lmeta)
+    with HostTensors(large, ds.device) as seen:
+        again = extract_isosurface(ds, "temp", ISO_VAL)
+    if seen.off_card or not seen.n_large:
+        raise AssertionError(f"large tensors off the card: {seen.off_card}"
+                             f" ({seen.n_large} large)")
+    if not (np.array_equal(first.elements, again.elements)
+            and np.array_equal(first.nodes, again.nodes)
+            and np.array_equal(first.elements, mef.elements)):
+        raise AssertionError("repeated extractions differ")
+    emit({"phase": "iso_repo_case", "case": REPO_CASE, "iso_val": ISO_VAL,
+          "launches": launches, "cold_s": cold, "warm_s": warm,
+          "warm_median_s": statistics.median(warm), "sphere": check,
+          "large_tensors_on_card": seen.n_large,
+          "large_means_elements": large})
+    return {"plt": plt, "mef": mef}
+
+
+def phase_iso_cpu(iso: dict, dev) -> None:
+    card = extract_isosurface(DenseAmrState.from_plotfile(
+        iso["plt"], dev, names=["temp"], dtype=torch.float64), "temp",
+        ISO_VAL)
+    cpu = extract_isosurface(DenseAmrState.from_plotfile(
+        iso["plt"], "cpu", names=["temp"], dtype=torch.float64), "temp",
+        ISO_VAL)
+    if not np.array_equal(card.elements, cpu.elements):
+        raise AssertionError("isosurface elements differ between card and CPU")
+    err = [float(np.abs(card.nodes[:, c] - cpu.nodes[:, c]).max()
+                 / np.abs(cpu.nodes[:, c]).max())
+           for c in range(cpu.nodes.shape[1])]
+    if not max(err) <= 1e-12:
+        raise AssertionError(f"isosurface nodes differ between card and CPU "
+                             f"by {err} of scale")
+    emit({"phase": "iso_card_vs_cpu", "tolerance": "identical elements; "
+          "nodes within 1e-12 of each column's largest value",
+          "nodes": cpu.n_nodes, "triangles": cpu.n_elts,
+          "max_err_over_scale": err})
+
+
+def host_waits(fn) -> int:
+    """How many times fn() makes the host wait on the card (the syncs that
+    torch.cuda's sync debug mode reports)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def stage_profile(fn) -> dict:
+    """fn() once under torch.profiler: wall time, and the device time of
+    every op attributed to the innermost ``isosurface.<stage>`` range
+    around it (the engine's stages; "other" outside them)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stage_us, launches = defaultdict(float), defaultdict(int)
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        own = ev.self_device_time_total
+        if not own:
+            continue
+        p = ev
+        while p is not None and not p.name.startswith("isosurface."):
+            p = p.cpu_parent
+        stage = p.name[len("isosurface."):] if p is not None else "other"
+        stage_us[stage] += own
+        launches[stage] += len(ev.kernels)
+    device_ms = sum(stage_us.values()) / 1e3
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "device_busy": device_ms / (wall * 1e3),
+            "stage_device_ms": {k: v / 1e3 for k, v in
+                                sorted(stage_us.items(), key=lambda x: -x[1])},
+            "stage_kernels": dict(launches)}
+
+
+def phase_iso_prod(tmp: str, dev) -> None:
+    plt = os.path.join(tmp, "plt_prod")
+    base = os.path.join(tmp, "iso_prod")
+    args = [f"infile={plt}", f"isoVal={ISO_VAL:g}", f"outfile_base={base}"]
+    cold = run_tool_counted("isosurface", args, (0, 0))
+    torch.cuda.reset_peak_memory_stats()
+    warm = run_tool_counted("isosurface", args, (0, 0))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    meta, names, fabs = load_plotfile_fabs(plt, names=["temp"])
+    ds = DenseAmrState.from_level_fabs(meta, names, fabs, dev, torch.float64)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mef = extract_isosurface(ds, "temp", ISO_VAL)
+    t2 = time.perf_counter()
+    write_mef(os.path.join(tmp, "split_iso.mef"), mef)
+    t3 = time.perf_counter()
+    waits = host_waits(lambda: extract_isosurface(ds, "temp", ISO_VAL))
+    extract_ms = cuda_ms(lambda: extract_isosurface(ds, "temp", ISO_VAL),
+                         n=5, warmup=1)
+    sphere = sphere_checks(mef, meta.geoms[-1].dx[0])
+    emit({"phase": "iso_production_size", "case": PROD_CASE,
+          "cells": sum(ba.total_cells() for ba in meta.bas),
+          "iso_val": ISO_VAL, "cold_s": cold, "warm_s": warm,
+          "max_memory_allocated": peak,
+          "layers": {"read_s": t1 - t0, "extract_s": t2 - t1,
+                     "write_s": t3 - t2},
+          "extract_warm_ms": extract_ms,
+          "host_waits_per_extraction": waits, "sphere": sphere,
+          "profile": stage_profile(
+              lambda: extract_isosurface(ds, "temp", ISO_VAL))})
+
+
+# -- phase 8 --------------------------------------------------------------------
+def phase_main_path(tmp: str, dev) -> None:
+    """grad -> curvature -> isosurface of one float32 state with the
+    functions' own defaults, as the JAX bench's composite (bench.py:194):
+    each stage's median CUDA-event time over warm runs, and their sum."""
+    out = {}
+    for name, case, n in (("repo", REPO_CASE, 20), ("production", PROD_CASE,
+                                                     10)):
+        plt = os.path.join(tmp, "plt_repo" if name == "repo" else "plt_prod")
+        ds = DenseAmrState.from_plotfile(plt, dev, names=["temp"])
+        stages = {
+            "grad": lambda: compute_grad_dense(ds, "temp"),
+            "curvature": lambda: compute_curvature_dense(ds, "temp"),
+            "isosurface": lambda: extract_isosurface(ds, "temp", ISO_VAL)}
+        # the main path's run: every count set to 0 just before, read just
+        # after
+        gk.LAUNCHES = mk.LAUNCHES = 0
+        mef = [fn() for fn in stages.values()][-1]
+        launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
+        L = case["n_levels"]
+        if launches != {"grad_mag": (1 + 7) * L, "stream_march": 0}:
+            raise AssertionError(f"main path launches {launches}")
+        if not (mef.n_elts > 0 and np.isfinite(mef.nodes).all()):
+            raise AssertionError("main path: empty or non-finite surface")
+        ms = {k: cuda_ms(fn, n=n) for k, fn in stages.items()}
+        out[name] = {"case": case, "dtype": "float32", "launches": launches,
+                     "ms": ms, "sum_ms": sum(ms.values()),
+                     "nodes": mef.n_nodes, "triangles": mef.n_elts}
+    emit({"phase": "main_path", "timing": "median CUDA-event time per "
+          "stage over warm runs", **out})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -757,6 +1003,10 @@ def main() -> int:
         phase_stream_prod(tmp, dev)
         phase_cpu(tmp, dev)
         phase_stream_cpu(stream, dev)
+        iso = phase_iso(tmp, dev)
+        phase_iso_cpu(iso, dev)
+        phase_iso_prod(tmp, dev)
+        phase_main_path(tmp, dev)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{

@@ -76,6 +76,8 @@ class DenseAmrState:
         self._in_level_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
         self._covered_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
         self._masks: dict = {}
+        # the isosurface engine's per-state inputs (geom/marching_cubes.py)
+        self._iso_cache: dict = {}
 
     # -- construction --------------------------------------------------------
     @classmethod

@@ -2,7 +2,7 @@
 key=value... [inputs]``.
 
 The same ParmParse key surface as ``python -m peleanalysis_tpu``, for the
-tools ported so far (``grad``, ``curvature``, ``stream``,
+tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
 ``sampleStreamlines``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions) and the global ``dtype=float32|float64``.
@@ -23,6 +23,7 @@ TOOLS = {
     "curvature": ".tools.curvature",
     "stream": ".tools.stream",
     "sampleStreamlines": ".tools.sample_streamlines",
+    "isosurface": ".tools.isosurface",
 }
 
 

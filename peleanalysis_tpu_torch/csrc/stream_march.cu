@@ -10,8 +10,11 @@
 //
 //   field : [SX, SY, SZ, 3], C order, component-minor (one corner's three
 //           components are contiguous, so the 8 corners of a stencil are
-//           4 runs of 6 values); FieldT = double, float or bfloat16
-//   seeds : [N, 3] in the state type T (double or float); dirs: [N] (+-1)
+//           4 runs of 6 values); FieldT = T, float under double positions
+//           (a float32 state marched in float64, as the JAX package does),
+//           or bfloat16
+//   seeds : [N, 3] in the position type T (double or float); dirs: [N]
+//           (+-1)
 //   out   : [n_steps + 1, N, 3] in T, row 0 = the seeds
 //   alive : [N] uint8, 0 once a stage's stencil left the volume
 //
@@ -32,8 +35,8 @@
 //
 // Rounding: every operation rounds once (the _rn intrinsics, and the build
 // passes --fmad=false), in the order of the plain PyTorch version
-// march_torch, so the two agree bitwise on the card.  bfloat16 values widen
-// to T exactly before any arithmetic.
+// march_torch, so the two agree bitwise on the card.  float and bfloat16
+// field values widen to T exactly before any arithmetic.
 
 #include <cuda_runtime.h>
 
@@ -200,5 +203,6 @@ int launch(const void* field, const void* seeds, const void* dirs, void* out,
 
 STREAM_MARCH_ENTRY(stream_march_f64, double, double)
 STREAM_MARCH_ENTRY(stream_march_f32, float, float)
+STREAM_MARCH_ENTRY(stream_march_f32_f64, float, double)
 STREAM_MARCH_ENTRY(stream_march_bf16_f64, Bf16, double)
 STREAM_MARCH_ENTRY(stream_march_bf16_f32, Bf16, float)

@@ -11,8 +11,10 @@ gathers each stage's 8 corners straight from device memory.
 
 The field is component-minor, ``[SX, SY, SZ, 3]`` (``prepare_field``), so a
 stencil's 8 corners are 4 runs of 6 contiguous values.  Positions and the
-arithmetic are in the state dtype (float64 or float32); the field is the
-state dtype or bfloat16, widened exactly before any arithmetic.
+arithmetic are in the seeds' dtype (float64 or float32); the field is that
+dtype, float32 under float64 positions (a float32 state, marched in float64
+as the JAX package marches it with x64 on) or bfloat16, widened exactly
+before any arithmetic.
 
 ``march`` sends a CPU tensor to ``march_torch`` and a CUDA tensor to the
 kernel.  Nothing falls back: a failed build or launch raises.
@@ -40,6 +42,7 @@ _NAME = "stream_march"
 _LIB = None
 _ENTRY = {(torch.float64, torch.float64): "stream_march_f64",
           (torch.float32, torch.float32): "stream_march_f32",
+          (torch.float32, torch.float64): "stream_march_f32_f64",
           (torch.bfloat16, torch.float64): "stream_march_bf16_f64",
           (torch.bfloat16, torch.float32): "stream_march_bf16_f32"}
 
@@ -117,10 +120,10 @@ def march(field: torch.Tensor, plo: Sequence[float], dx: Sequence[float],
           h: float, seeds: torch.Tensor, n_steps: int, dirs: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher: a CPU tensor takes ``march_torch``, a CUDA tensor the
-    kernel.  field ``[SX, SY, SZ, 3]`` (``prepare_field``) in the state
-    dtype or bfloat16; seeds ``[N, 3]`` and dirs ``[N]`` (+-1) in the state
-    dtype, float64 or float32.  Returns ``(pos [n_steps+1, N, 3], alive
-    [N] bool)``."""
+    kernel.  seeds ``[N, 3]`` and dirs ``[N]`` (+-1) in the position dtype,
+    float64 or float32; field ``[SX, SY, SZ, 3]`` (``prepare_field``) in
+    that dtype, float32 under float64 positions, or bfloat16.  Returns
+    ``(pos [n_steps+1, N, 3], alive [N] bool)``."""
     _check(field, plo, dx, seeds, n_steps, dirs)
     if seeds.device.type == "cpu":
         return march_torch(field, plo, dx, h, seeds, n_steps, dirs)
@@ -131,9 +134,10 @@ def march(field: torch.Tensor, plo: Sequence[float], dx: Sequence[float],
 
 def _check(field, plo, dx, seeds, n_steps, dirs) -> None:
     if (field.dtype, seeds.dtype) not in _ENTRY:
-        raise TypeError(f"march takes a float64 or float32 state with a "
-                        f"field of that dtype or bfloat16, not field "
-                        f"{field.dtype} with state {seeds.dtype}")
+        raise TypeError(f"march takes float64 or float32 positions with a "
+                        f"field of that dtype, float32 (float64 positions) "
+                        f"or bfloat16, not field {field.dtype} with "
+                        f"positions {seeds.dtype}")
     if field.ndim != 4 or field.shape[3] != 3 or min(field.shape[:3]) < 2:
         raise ValueError(f"field must be [SX, SY, SZ, 3] with every S >= 2, "
                          f"not {tuple(field.shape)}")

@@ -180,9 +180,11 @@ def trace_streamlines(
 
     trace_field: scalar whose (normalised) gradient is followed; None
     follows (x,y,z)_velocity.  h_rk is in units of the finest dx
-    (stream.cpp:700).  march_dtype="bfloat16" stores the marched vector
-    field in bfloat16 (positions and arithmetic stay in the state dtype);
-    "float32", "float64" or None keep the state dtype.  march_engine:
+    (stream.cpp:700).  Positions, the march's arithmetic and the sampled
+    values are float64 whatever the state dtype, as in the JAX package with
+    x64 on (its seeds and plo are float64).  march_dtype="bfloat16" stores
+    the marched vector field in bfloat16; "float32", "float64" or None keep
+    the state dtype.  march_engine:
     "auto", "pallas" or "xla" (the kernel on a CUDA state, the plain
     version on a CPU state), "cuda" (the kernel: a CUDA state only) or
     "torch" (the plain version: a CPU state only).
@@ -208,7 +210,7 @@ def trace_streamlines(
         raise ValueError(f"march_dtype={march_dtype!r}: expected bfloat16, "
                          "float32, float64 or none")
     meta = dstate.meta
-    state_dt, dev = dstate.dtype, dstate.device
+    dev = dstate.device
     n_half = (n_rk_steps - 1) // 2
     compress = (march_dtype == "bfloat16" and n_half <= 320
                 if fetch_compress is None else bool(fetch_compress))
@@ -243,7 +245,7 @@ def trace_streamlines(
         vec_src = vec_src + ["_zero"]
     nv = len(vec_src)
     nf = len(sample_names)
-    field_dt = torch.bfloat16 if march_dtype == "bfloat16" else state_dt
+    field_dt = torch.bfloat16 if march_dtype == "bfloat16" else dstate.dtype
 
     out = np.zeros((len(seeds), 2 * n_half + 1, 3 + nf))
     for lev in range(meta.n_levels):
@@ -272,11 +274,11 @@ def trace_streamlines(
             fields = grown[nv:]
             plo = plo_g
         field = prepare_field(vec, field_dt)
-        ss = torch.from_numpy(seeds[sel]).to(dev, state_dt)
+        ss = torch.from_numpy(seeds[sel]).to(dev)           # float64
         ns = len(sel)
         # +- as ONE march over doubled seeds (per-seed direction)
-        dirs = torch.cat([torch.ones(ns, dtype=state_dt, device=dev),
-                          -torch.ones(ns, dtype=state_dt, device=dev)])
+        dirs = torch.cat([torch.ones(ns, dtype=torch.float64, device=dev),
+                          -torch.ones(ns, dtype=torch.float64, device=dev)])
         pos2, _ = march(field, plo, dx, h_phys, torch.cat([ss, ss]), n_half,
                         dirs)
         pos_p, pos_m = pos2[:, :ns], pos2[:, ns:]

@@ -1,0 +1,114 @@
+"""``isosurface`` — marching-cubes isosurface of a plotfile variable -> MEF.
+
+Counterpart of ``peleanalysis_tpu/tools/isosurface.py`` (dense path, the
+enum engine), itself the replacement for the reference's
+Src/isosurface.cpp.  CLI keys follow isosurface.cpp:1295-1399,1894-2238:
+infile, isoCompName (default temp), isoVal, comps / sComp+nComp (extra node
+fields), finestLevel, is_per, writeSurf, surfFormat=MEF|DAT|XDMF,
+outfile_base, computeArea.  The engine lives in ``geom/marching_cubes.py``
+(``geom/marching_squares.py`` for DIM=2 plotfiles).
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .. import config
+from ..amr.dense import DenseAmrState
+from ..amr.hierarchy import load_plotfile_fabs
+from ..geom.marching_cubes import extract_isosurface, surface_area
+from ..geom.marching_squares import extract_isolines
+from ..io.mef import write_mef, write_mef_tecplot
+from ..io.plotfile import PlotfileReader
+from ..io.xdmf import write_xdmf
+from ..parmparse import ParmParse
+from .grad import refuse_sparse, refuse_unported
+
+
+def refuse_unported_iso(pp: ParmParse) -> None:
+    """isosurface options the port does not run yet: raise instead of
+    quietly taking another path."""
+    refuse_unported(pp)
+    if pp.query_bool("build_distance_function", False):
+        raise NotImplementedError(
+            "build_distance_function=1 needs geom/sdf.py, which is not ported "
+            "yet (ROADMAP.md Queue 1 item 8: the remaining tools)")
+    if pp.query_bool("surface_is_large", False):
+        raise NotImplementedError(
+            "surface_is_large=1 runs the sparse clustered path, which is not "
+            "ported yet (ROADMAP.md Queue 1 item 7: sparse refinement)")
+
+
+def main(args: dict) -> None:
+    """CLI: isosurface infile= [isoCompName=temp] [isoVal=1000]
+    [comps=<extra node fields>] [sComp= nComp=] [finestLevel=]
+    [is_per=0 0 0] [writeSurf=1] [surfFormat=MEF|DAT|XDMF] [outfile_base=]
+    [computeArea=0] [engine=enum] [rm_external_elements=1] [force_dense=0]
+    [verbose=0] [device=cuda|cpu].  The plotfile loads in float64 whatever
+    dtype=."""
+    pp = ParmParse(args)
+    verbose = pp.query_int("verbose", 0)
+    infile = pp.get_str("infile")
+    iso_name = pp.query_str("isoCompName", "temp")
+    iso_val = pp.query_float("isoVal", 1000.0)
+    is_per = pp.query_int_list("is_per", [0, 0, 0])
+    finest = pp.query_int("finestLevel", None)
+    engine = pp.query_str("engine", "enum")
+    device = config.get_device(pp.query_str("device", "cuda"))
+    refuse_unported_iso(pp)
+
+    var_names = PlotfileReader(infile).var_names
+    extras = pp.query_str_list("comps", [])
+    extras = [var_names[int(c)] if c.isdigit() else c for c in extras]
+    if pp.contains("sComp") or pp.contains("nComp"):
+        # reference-style comp-range selection (isosurface.cpp sComp/nComp)
+        s = pp.query_int("sComp", 0)
+        n = pp.query_int("nComp", 1)
+        extras = extras + [v for v in var_names[s: s + n]
+                           if v not in extras]
+    if not pp.query_bool("rm_external_elements", True):
+        print("isosurface: rm_external_elements=0 ignored — the canonical "
+              "per-edge engine never emits duplicate/overlap elements "
+              "(the reference's per-box g1box filter has no analog here)")
+
+    t0 = time.perf_counter()
+    load = [iso_name] + [n for n in extras if n != iso_name]
+    meta, names, fabs = load_plotfile_fabs(
+        infile, names=load, max_level=finest,
+        is_periodic=[bool(p) for p in is_per])
+    if meta.ndim2 and pp.query_bool("writeLines", False):
+        raise NotImplementedError(
+            "writeLines=1 needs geom/mef_tools.py, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 8: the remaining tools)")
+    if not meta.ndim2 and not pp.query_bool("force_dense", False):
+        refuse_sparse(meta, [meta.n_levels - 1])
+    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
+                                       torch.float64)
+    t1 = time.perf_counter()
+    label = f"{meta.time:g}"
+    if meta.ndim2:
+        # DIM=2 plotfile: marching squares -> polyline contour MEF
+        mef = extract_isolines(ds, iso_name, iso_val, extras, label=label)
+    else:
+        mef = extract_isosurface(ds, iso_name, iso_val, extras, label=label,
+                                 classify=engine)
+    t2 = time.perf_counter()
+    base = pp.query_str("outfile_base", f"{infile}_{iso_name}_{iso_val:g}")
+    if pp.query_bool("writeSurf", True):
+        fmt = pp.query_str("surfFormat", "MEF").upper()
+        if fmt == "MEF":
+            write_mef(base + ".mef", mef)
+            print(f"wrote {base}.mef  ({mef.n_nodes} nodes, "
+                  f"{mef.n_elts} elements)")
+        elif fmt == "XDMF":
+            write_xdmf(base, mef, iso_name, iso_val, meta.time)
+            print(f"wrote {base}.xmf/.mesh")
+        else:
+            write_mef_tecplot(base + ".dat", mef)
+            print(f"wrote {base}.dat")
+    if pp.query_bool("computeArea", False):
+        print(f"Total area of surface: {surface_area(mef):.10g}")
+    if verbose:
+        print(f"isosurface: read {t1 - t0:.3f} s, extract {t2 - t1:.3f} s, "
+              f"write {time.perf_counter() - t2:.3f} s")

@@ -120,7 +120,7 @@ def test_sparse_refinement_raises():
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):
-    assert cli.main(["isosurface", "infile=x"]) == 2
+    assert cli.main(["jpdf", "infile=x"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli.main(["noSuchTool"]) == 2
     assert cli.main(["--help"]) == 0

@@ -64,7 +64,9 @@ def test_every_port_module_imports_without_jax():
     assert "peleanalysis_tpu_torch.tools.curvature" in mods
     for m in ("ops.cuda_build", "io.mef", "io.stream_data",
               "stream.march_kernels", "stream.trace", "stream.surface",
-              "tools.stream", "tools.sample_streamlines"):
+              "tools.stream", "tools.sample_streamlines", "geom.mc_tables",
+              "geom.marching_cubes", "geom.marching_squares", "io.xdmf",
+              "tools.isosurface"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -83,3 +85,22 @@ def test_cli_help_runs_without_jax():
     assert res.returncode == 0, res.stderr
     assert "grad" in res.stdout and "curvature" in res.stdout
     assert "stream" in res.stdout and "sampleStreamlines" in res.stdout
+    assert "isosurface" in res.stdout
+
+
+def test_isosurface_cli_runs_without_jax(tmp_path):
+    """A tiny extraction through the port's CLI, its MEF read back."""
+    res = _run("import sys\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.mef import read_mef\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "plt, base = sys.argv[1] + '/plt', sys.argv[1] + '/surf'\n"
+               "write_synthetic_plotfile(plt, n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "assert cli.main(['isosurface', 'infile=' + plt, "
+               "'outfile_base=' + base, 'device=cpu']) == 0\n"
+               "assert read_mef(base + '.mef').n_elts > 100\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "wrote" in res.stdout

@@ -6,10 +6,12 @@ Tolerances:
     JAX einsum may sum the 8 corners in another order);
   * float32 march: 1e-5 of the extent, as the JAX package holds its Pallas
     march to its XLA march;
-  * trace_streamlines in float32: the port marches in float32 while the JAX
-    package (x64 on) marches float32 fields in float64, so lines agree to
-    1e-5 of the extent and sampled fields to 1e-5 of their largest value
-    (float32 rounding plus the field gradient times that 1e-5);
+  * trace_streamlines of a float32 state: both packages march and sample
+    the float32 fields in float64, so only the fields can differ, by an ulp
+    or so where the JAX package's compiled fill contracts a multiply-add.
+    Lines agree to 5e-8 of the extent (4 float32 ulps of the unit vector
+    over the ~0.16 path length) and sampled fields to 2.5e-7 of their
+    largest value (4 float32 ulps);
   * the lossy packing: one int16 delta step (h/32000) per station between
     the seed and the point, one uint16 step of the line's range (1/65535)
     for sampled fields;
@@ -36,6 +38,8 @@ from peleanalysis_tpu_torch.stream.trace import (assign_seeds_to_levels,
 
 TORCH = {np.float64: torch.float64, np.float32: torch.float32}
 EXTENT_TOL = {np.float64: 1e-12, np.float32: 1e-5}
+# trace_streamlines: (lines over the extent, sampled fields over their scale)
+TRACE_TOL = {np.float64: (1e-12, 1e-12), np.float32: (5e-8, 2.5e-7)}
 
 
 def port_state(jds: JaxDense, device="cpu") -> DenseAmrState:
@@ -138,6 +142,24 @@ def test_bf16_field_matches_jax_bf16_march(case, dt):
                                atol=EXTENT_TOL[dt])
 
 
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_f32_field_f64_positions_match_trace_level(case):
+    """A float32 state's march: the JAX package (x64 on) gathers the
+    float32 field and marches float64 seeds in float64, as the port does."""
+    vec, plo, dx, h, seeds, dirs, n = CASES[case]()
+    want, want_ok = _trace_level(
+        jnp.asarray(vec, jnp.float32), None, jnp.asarray(plo),
+        jnp.asarray(dx), h, jnp.asarray(seeds), n,
+        jnp.asarray(dirs)[:, None])
+    assert want.dtype == jnp.float64
+    got, ok = _port_march(vec.astype(np.float32), plo, dx, h, seeds, dirs, n,
+                          np.float64, field_dt=torch.float32)
+    assert got.dtype == torch.float64
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want_ok))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=EXTENT_TOL[np.float64])
+
+
 def test_march_dispatcher_cpu_takes_plain_version():
     vec, plo, dx, h, seeds, dirs, n = _rotating_case()
     before = mk.LAUNCHES
@@ -150,7 +172,8 @@ def test_march_dispatcher_cpu_takes_plain_version():
 
 @pytest.mark.parametrize("bad, err", [
     (dict(field=lambda f: f.to(torch.float16)), TypeError),
-    (dict(field=lambda f: f.to(torch.float32)), TypeError),   # dtype mix
+    (dict(seeds=lambda s: s.to(torch.float32),                # dtype mix
+          dirs=lambda d: d.to(torch.float32)), TypeError),
     (dict(field=lambda f: f.transpose(0, 1)), ValueError),    # layout
     (dict(field=lambda f: f[..., :2]), ValueError),
     (dict(seeds=lambda s: s[:, :2]), ValueError),
@@ -172,8 +195,8 @@ def test_march_build_needs_no_import_time_toolkit():
     assert p.name.startswith("libstream_march_") and p.suffix == ".so"
     assert mk._LIB is None
     assert set(mk._ENTRY.values()) == {
-        "stream_march_f64", "stream_march_f32", "stream_march_bf16_f64",
-        "stream_march_bf16_f32"}
+        "stream_march_f64", "stream_march_f32", "stream_march_f32_f64",
+        "stream_march_bf16_f64", "stream_march_bf16_f32"}
 
 
 # -- trace_streamlines ---------------------------------------------------------
@@ -211,12 +234,13 @@ def test_trace_streamlines_parity(plotfiles, trace_field, n_levels, dt):
     # seeds spread over every level
     assert set(assign_seeds_to_levels(pds, seeds)) == set(range(n_levels))
     assert got.shape == want.shape == (len(seeds), 21, 5)
-    tol = EXTENT_TOL[dt]
-    np.testing.assert_allclose(got[..., :3], want[..., :3], rtol=0, atol=tol)
+    pos_tol, val_tol = TRACE_TOL[dt]
+    np.testing.assert_allclose(got[..., :3], want[..., :3], rtol=0,
+                               atol=pos_tol)
     for c in (3, 4):
         scale = np.abs(want[..., c]).max()
         np.testing.assert_allclose(got[..., c], want[..., c], rtol=0,
-                                   atol=tol * scale)
+                                   atol=val_tol * scale)
 
 
 def test_trace_engines_agree_on_cpu(plotfiles):
@@ -255,13 +279,13 @@ def test_compressed_packing_matches_jax(plotfiles, march_dtype, dt):
     # reconstruction walks out from the exact seed station: station j may
     # differ by |j - n_half| delta steps where a rounding fell the other way
     steps = np.abs(np.arange(2 * n_half + 1) - n_half)[None, :, None]
-    march_tol = EXTENT_TOL[dt] if march_dtype is None else 1e-12
-    bound = steps * h_phys / 32000.0 + march_tol + 1e-7   # seed in float32
+    pos_tol, val_tol = TRACE_TOL[dt]
+    bound = steps * h_phys / 32000.0 + pos_tol + 1e-7   # seed in float32
     assert (np.abs(got[..., :3] - want[..., :3]) <= bound).all()
     rng = want[..., 3].max(axis=1) - want[..., 3].min(axis=1)
     err = np.abs(got[..., 3] - want[..., 3]).max(axis=1)
     scale = np.abs(want[..., 3]).max()
-    assert (err <= rng / 65535.0 + EXTENT_TOL[dt] * scale + 1e-4).all()
+    assert (err <= rng / 65535.0 + val_tol * scale + 1e-4).all()
 
 
 def test_default_packing_follows_march_dtype(plotfiles):
