@@ -14,10 +14,13 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   3 kernel   - grad_mag kernel vs grad_mag_torch on the card, float32 and
                float64, with and without the magnitude: gradients bitwise,
                magnitude within 1 ulp; median times over 20 runs
-  3b march   - stream_march kernel vs march_torch on the card: float64,
-               float32 (float32 and float64 positions) and bfloat16 fields,
-               boundary-exit lines up to the production line count; median
-               times
+  3b march   - stream_march kernel vs march_torch on the card, bitwise:
+               float64, float32 (float32 and float64 positions) and
+               bfloat16 fields, boundary-exit lines up to the production
+               line count; the order key kernel vs its plain version; at
+               production, the time of march() (one call, and 10-launch
+               batches), the field cells the stencils read, bytes, flops,
+               bound, share of it and registers; the order key's time
   4 main     - the repo's 3-level case (64^3 -> 120^3 finest patch) through
                `grad` and `curvature` (cli.main), cold then 3 warm runs;
                kernel launch counts, finiteness and the analytic gradient
@@ -112,6 +115,40 @@ def cuda_ms(fn, n=20, warmup=3) -> float:
     return statistics.median(times)
 
 
+def batch_ms(fn, launches=10, reps=5, warmup=3) -> float:
+    """Median over reps of the mean device time of fn() over a batch of
+    launches, CUDA events around the batch: the host's work between
+    launches overlaps the device's, as in a stream of calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
+# one H100 SXM's published peaks (NVIDIA's data sheet, at the 700 W limit):
+# memory bytes/s and the vector (non-tensor-core) flop/s of each dtype
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.float64: 34e12, torch.float32: 67e12}
+
+
+def bound(nbytes: float, flops: float, dtype: torch.dtype):
+    """(least ms the card could take, what bounds it): the larger of the
+    bytes over the memory rate and the flops over the dtype's peak."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def ulp_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in units in the last place between two tensors of
     non-negative values."""
@@ -180,10 +217,38 @@ def phase_kernel(dev) -> dict:
                         "kernel_GBps": nbytes / ms / 1e6}
                 cases.append(case)
                 main_times[(grown_shape, dtype, with_mag)] = (ms, plain_ms)
-    emit({"phase": "kernel_vs_plain", "tolerance": "gradients bitwise, "
-          "magnitude <= 1 ulp", "cases": cases})
+    # the yardstick: torch.gradient computes gx, gy, gz (not the magnitude)
+    # of the grown field; its interior is the kernel's with_mag=False output
+    g = torch.randn((122,) * 3, generator=gen, dtype=torch.float64).to(
+        dev, torch.float32)
+    lib = torch.gradient(g, spacing=list(dx))
+    k = gk.grad_mag(g, dx, False)
+    lib_err = max(float((a[1:-1, 1:-1, 1:-1] - b).abs().max())
+                  for a, b in zip(lib, k))
+    if not lib_err <= 1e-5 * float(k.abs().max()):
+        raise AssertionError(f"torch.gradient differs from grad_mag by "
+                             f"{lib_err}")
+    library_ms = cuda_ms(lambda: torch.gradient(g, spacing=list(dx)))
+    # the bound of the main-path case (grown 122^3 float32, with the
+    # magnitude): the grown field read once and 4 outputs written once,
+    # against 12 flops a cell (3 differences and divisions; 3 products,
+    # 2 sums and a square root)
+    n = 120 ** 3
+    nbytes, flops = 4 * (122 ** 3 + 4 * n), 12 * n
+    bound_ms, bound_by = bound(nbytes, flops, torch.float32)
     ms, plain_ms = main_times[((122, 122, 122), torch.float32, True)]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    emit({"phase": "kernel_vs_plain", "tolerance": "gradients bitwise, "
+          "magnitude <= 1 ulp", "cases": cases,
+          "library": {"call": "torch.gradient", "grown": [122] * 3,
+                      "dtype": "float32", "ms": library_ms,
+                      "kernel_ms_without_magnitude": main_times[
+                          ((122, 122, 122), torch.float32, False)][0],
+                      "max_abs_diff": lib_err},
+          "bound": {"bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "share": bound_ms / ms}})
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # -- phase 3b -------------------------------------------------------------------
@@ -193,9 +258,6 @@ MARCH_VARIANTS = {"f64": (torch.float64, torch.float64),
                   "f32_f64": (torch.float32, torch.float64),
                   "bf16_f64": (torch.bfloat16, torch.float64),
                   "bf16_f32": (torch.bfloat16, torch.float32)}
-# positions, as a fraction of the unit domain: the same operations in the
-# same order, so only a differing rounding could separate them
-MARCH_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 
 
 def sphere_mef(n_theta: int, n_phi: int, r: float, c: float = 0.5):
@@ -229,12 +291,55 @@ def radial_gradient(shape, plo, dx, dev) -> torch.Tensor:
     return torch.stack([g * X, g * Y, g * Z], -1).contiguous()
 
 
+# flops of one line-step of the march: 4 stages of 84 (the cell coordinate
+# 9, t and the weights 6, the 8 corner weights from their 4 shared products
+# wx * wy and the 24-term sum 57, the norm 6, the unit vector 6) and 39 for
+# the stage inputs and the update
+FLOPS_PER_LINE_STEP = 4 * 84 + 39
+
+
+class StencilCells(TorchDispatchMode):
+    """Marks the field cells that march_torch's corner gathers read (every
+    aten.index of the field's storage), on the field's device."""
+
+    def __init__(self, field: torch.Tensor):
+        super().__init__()
+        self.ptr = field.untyped_storage().data_ptr()
+        self.seen = torch.zeros(int(np.prod(field.shape[:3])),
+                                dtype=torch.bool, device=field.device)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if (func is torch.ops.aten.index.Tensor
+                and args[0].untyped_storage().data_ptr() == self.ptr):
+            self.seen[args[1][0].reshape(-1)] = True
+        return func(*args, **(kwargs or {}))
+
+
+def march_bound(field, seeds, n_steps: int, cells: int) -> dict:
+    """Bytes, flops and bound of one march in which every line stays alive:
+    each touched cell's 3 components read once, the seeds and directions
+    read once, the positions and alive flags written once;
+    FLOPS_PER_LINE_STEP flops a line-step, at the peak of the position
+    dtype."""
+    N, pos = seeds.shape[0], seeds.element_size()
+    nbytes = (cells * 3 * field.element_size() + N * 4 * pos
+              + (n_steps + 1) * N * 3 * pos + N)
+    flops = FLOPS_PER_LINE_STEP * N * n_steps
+    bound_ms, bound_by = bound(nbytes, flops, seeds.dtype)
+    return {"cells": cells, "bytes": nbytes, "flops": flops,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def phase_march_kernel(dev) -> dict:
     """Kernel vs march_torch at three shapes: boundary-exit lines in a
     small outward-drift field, the repo case's finest level (grown 150^3,
     gradient 148^3, 4k lines) and the production finest level (gradient
-    276^3, 130k sphere seeds in both directions, 25 steps)."""
-    cases, worst, times = [], 0.0, {}
+    276^3, 130k sphere seeds in both directions, 25 steps).  The order key
+    kernel vs order_key_torch at each.  At production: the distinct field
+    cells the stencils read (counted from the plain version's gathers),
+    the bytes, flops and bound of a march, the kernel's share of it and its
+    registers; the order key's times and bound."""
+    cases, worst, times, key = [], 0.0, {}, None
     gen = torch.Generator().manual_seed(0)
     xs = [torch.linspace(0, 1, s, dtype=torch.float64, device=dev)
           for s in (16, 18, 88)]
@@ -261,13 +366,22 @@ def phase_march_kernel(dev) -> dict:
         ns = seeds.shape[0] // 2
         dirs = torch.cat([torch.ones(ns), -torch.ones(ns)]).to(dev,
                                                               torch.float64)
+        vec = field64.movedim(-1, 0)
+        shape = field64.shape[:3]
+        if not torch.equal(mk.order_key(shape, plo, dx, seeds, dirs),
+                           mk.order_key_torch(shape, plo, dx, seeds, dirs)):
+            raise AssertionError(f"order key differs from plain at {name}")
+        if name == "production":
+            key = order_key_times(shape, plo, dx, seeds, dirs)
         for var, (fdt, sdt) in MARCH_VARIANTS.items():
-            field, s, d = field64.to(fdt), seeds.to(sdt), dirs.to(sdt)
+            field = mk.prepare_field(vec, fdt)
+            s, d = seeds.to(sdt), dirs.to(sdt)
             k, ka = mk.march(field, plo, dx, h, s, n, d)
-            p, pa = mk.march_torch(field, plo, dx, h, s, n, d)
+            with StencilCells(field) as stencils:
+                p, pa = mk.march_torch(field, plo, dx, h, s, n, d)
             torch.cuda.synchronize()
             err = float((k - p).abs().max())
-            if not torch.equal(ka, pa) or not err <= MARCH_TOL[sdt]:
+            if not (torch.equal(k, p) and torch.equal(ka, pa)):
                 raise AssertionError(f"march kernel differs from plain at "
                                      f"{name} {var}: err {err}, alive "
                                      f"equal {torch.equal(ka, pa)}")
@@ -275,22 +389,53 @@ def phase_march_kernel(dev) -> dict:
                 raise AssertionError(f"non-finite march at {name} {var}")
             worst = max(worst, err)
             case = {"shape": name, "variant": var, "lines": 2 * ns,
-                    "steps": n, "max_abs_err": err,
-                    "bitwise": bool(torch.equal(k, p)),
-                    "alive": int(ka.sum())}
+                    "steps": n, "max_abs_err": err, "bitwise": True,
+                    "alive": int(ka.sum()),
+                    "ordered": (fdt, sdt) in mk.ORDERED}
             if name == "production" and var != "bf16_f32":
-                case["ms"] = cuda_ms(
-                    lambda: mk.march(field, plo, dx, h, s, n, d), n=10)
+                if not bool(ka.all()):
+                    raise AssertionError("a production line froze: the "
+                                         "bound counts every line-step")
+                case.update(march_bound(field, s, n,
+                                        int(stencils.seen.sum())))
+                def run():
+                    return mk.march(field, plo, dx, h, s, n, d)
+                # one call, the host's work before its launches included;
+                # then the mean over a batch, where that work overlaps the
+                # previous call's launches
+                case["ms"] = cuda_ms(run, n=10)
+                case["batch_ms"] = batch_ms(run)
                 case["plain_ms"] = cuda_ms(
                     lambda: mk.march_torch(field, plo, dx, h, s, n, d),
                     n=5, warmup=1)
-                times[var] = (case["ms"], case["plain_ms"])
+                case["share_of_bound"] = case["bound_ms"] / case["ms"]
+                case["share_of_bound_batch"] = (case["bound_ms"]
+                                                / case["batch_ms"])
+                case["kernel"] = mk.kernel_report(fdt, sdt)
+                times[var] = case
             cases.append(case)
-    emit({"phase": "march_kernel_vs_plain", "tolerance": "identical alive "
-          "flags; positions within 1e-12 (float64 positions) or 1e-5 "
-          "(float32 positions) of the unit domain", "cases": cases})
-    ms, plain_ms = times["f64"]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            del field, k, p
+    emit({"phase": "march_kernel_vs_plain", "tolerance": "bitwise: "
+          "positions and alive flags identical; order keys identical",
+          "cases": cases, "order_key": key})
+    return {"max_abs_err": worst, "key": key, **{k: times["f64"][k] for k in (
+        "ms", "batch_ms", "plain_ms", "bound_ms", "bound_by")}}
+
+
+def order_key_times(shape, plo, dx, seeds, dirs) -> dict:
+    """The order key kernel and its plain version at one march's lines
+    (float64): times per call and the bound, the seeds and directions read
+    once and the int32 keys written once, against 9 flops a line (the cell
+    coordinate; the Morton code is integer work)."""
+    N = seeds.shape[0]
+    ms = cuda_ms(lambda: mk.order_key(shape, plo, dx, seeds, dirs))
+    plain_ms = cuda_ms(lambda: mk.order_key_torch(shape, plo, dx, seeds,
+                                                  dirs))
+    nbytes, flops = N * (4 * 8 + 4), 9 * N
+    bound_ms, bound_by = bound(nbytes, flops, torch.float64)
+    return {"lines": N, "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": 0}
 
 
 # -- phase 4 --------------------------------------------------------------------
@@ -369,13 +514,14 @@ def phase_main(tmp: str) -> int:
     grad_args = [f"infile={plt}", "gradVar=temp"]
     curv_args = [f"infile={plt}", "progressName=temp"]
     # the main path's run: every count set to 0 just before, read just after
-    gk.LAUNCHES = mk.LAUNCHES = 0
+    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
     cold = {"grad": run_tool("grad", grad_args, L),
             "curvature": run_tool("curvature", curv_args, L)}
     launches = gk.LAUNCHES
-    if launches != (1 + 7) * L or mk.LAUNCHES:
-        raise AssertionError(f"main path launched {launches} grad_mag and "
-                             f"{mk.LAUNCHES} stream_march kernels")
+    if launches != (1 + 7) * L or mk.LAUNCHES or mk.KEY_LAUNCHES:
+        raise AssertionError(f"main path launched {launches} grad_mag, "
+                             f"{mk.LAUNCHES} stream_march and "
+                             f"{mk.KEY_LAUNCHES} order key kernels")
     warm = {t: [run_tool(t, a, L) for _ in range(3)]
             for t, a in (("grad", grad_args), ("curvature", curv_args))}
     check = check_outputs(plt + "_gt", plt + "_K")
@@ -403,19 +549,26 @@ def write_seed_mef(path: str, n_theta: int, n_phi: int, extra=()) -> int:
     return n
 
 
+def counts() -> dict:
+    return {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES,
+            "stream_march_order_key": mk.KEY_LAUNCHES}
+
+
 def run_tool_counted(tool: str, args, expect) -> float:
-    """One CLI run; expect = (grad_mag launches, stream_march launches)."""
-    g0, m0 = gk.LAUNCHES, mk.LAUNCHES
+    """One CLI run; expect = its launches of each kernel, as counts()
+    orders them.  The tools march float64 fields, so every march launch
+    follows one order key launch."""
+    before = counts()
     t0 = time.perf_counter()
     rc = cli.main([tool, *args])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{tool} exited {rc}")
-    got = (gk.LAUNCHES - g0, mk.LAUNCHES - m0)
+    got = tuple(v - before[k] for k, v in counts().items())
     if got != tuple(expect):
-        raise AssertionError(f"{tool}: (grad_mag, stream_march) launches "
-                             f"{got}, expected {tuple(expect)}")
+        raise AssertionError(f"{tool}: launches {got} of {list(before)}, "
+                             f"expected {tuple(expect)}")
     return wall
 
 
@@ -515,19 +668,21 @@ def phase_stream(tmp: str) -> dict:
               *STREAM_KEYS, "aux_comps=density"]
     runs = {
         "stream_gradient": ("stream", [*common, f"streamFile={sd_grad}",
-                                       f"outFile={sd_grad}.dat"], (L, L)),
+                                       f"outFile={sd_grad}.dat"], (L, L, L)),
         "stream_velocity": ("stream", [*common, "traceAlongV=1",
-                                       f"streamFile={sd_vel}"], (0, L)),
+                                       f"streamFile={sd_vel}"], (0, L, L)),
         "sampleStreamlines": ("sampleStreamlines", [
             f"plotfile={plt}", f"pathFile={sd_grad}", "comps=density temp",
-            f"streamSampleFile={sd_samp}"], (0, 0)),
+            f"streamSampleFile={sd_samp}"], (0, 0, 0)),
     }
     # the stream path's run: every count set to 0 just before, read just
-    # after; one grad_mag and one march launch per seeded level
-    gk.LAUNCHES = mk.LAUNCHES = 0
+    # after; one grad_mag, one order key and one march launch per seeded
+    # level
+    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
     cold = {k: run_tool_counted(*v) for k, v in runs.items()}
-    launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
-    if launches != {"grad_mag": L, "stream_march": 2 * L}:
+    launches = counts()
+    if launches != {"grad_mag": L, "stream_march": 2 * L,
+                    "stream_march_order_key": 2 * L}:
         raise AssertionError(f"stream path launches {launches}")
     warm = {k: [run_tool_counted(*v) for _ in range(2)]
             for k, v in runs.items()}
@@ -597,7 +752,8 @@ def phase_prod(tmp: str, dev) -> None:
 # -- phase 5b -------------------------------------------------------------------
 def profiled_trace(fn) -> dict:
     """fn() once under torch.profiler: its host wall time and the device
-    time of its device-to-host copies and of its march kernel launches."""
+    time of its device-to-host copies, of its march kernel launches and of
+    the march's locality order (key kernel and radix sort)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -612,7 +768,9 @@ def profiled_trace(fn) -> dict:
         return sum(e.device_time_total for e in ev if part in e.key) / 1e3
 
     return {"wall_s": wall, "d2h_ms": device_ms("Memcpy DtoH"),
-            "march_kernel_ms": device_ms("march_kernel")}
+            "march_kernel_ms": device_ms("march_kernel"),
+            "march_order_ms": device_ms("order_key_kernel")
+            + device_ms("RadixSort")}
 
 
 def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
@@ -660,10 +818,10 @@ def phase_stream_prod(tmp: str, dev) -> None:
     # every sphere seed lies on the finest level: one launch of each kernel
     runs = (("stream", [f"plotfile={plt}", "progressName=temp",
                         f"isoFile={mef}", *STREAM_KEYS, "aux_comps=density",
-                        f"streamFile={sd}", f"outFile={sd}.dat"], (1, 1)),
+                        f"streamFile={sd}", f"outFile={sd}.dat"], (1, 1, 1)),
             ("sampleStreamlines", [f"plotfile={plt}", f"pathFile={sd}",
                                    "comps=density",
-                                   f"streamSampleFile={sd2}"], (0, 0)))
+                                   f"streamSampleFile={sd2}"], (0, 0, 0)))
     res = {}
     for tool, args, expect in runs:
         cold = run_tool_counted(tool, args, expect)
@@ -825,10 +983,11 @@ def phase_iso(tmp: str, dev) -> dict:
     args = [f"infile={plt}", f"isoVal={ISO_VAL:g}", f"outfile_base={base}"]
     # the isosurface path's run: every count set to 0 just before, read
     # just after
-    gk.LAUNCHES = mk.LAUNCHES = 0
-    cold = run_tool_counted("isosurface", args, (0, 0))
-    launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
-    warm = [run_tool_counted("isosurface", args, (0, 0)) for _ in range(3)]
+    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+    cold = run_tool_counted("isosurface", args, (0, 0, 0))
+    launches = counts()
+    warm = [run_tool_counted("isosurface", args, (0, 0, 0))
+            for _ in range(3)]
     meta = load_plotfile_fabs(plt, names=["temp"])[0]
     mef = read_mef(base + ".mef")
     check = sphere_checks(mef, meta.geoms[-1].dx[0])
@@ -927,9 +1086,9 @@ def phase_iso_prod(tmp: str, dev) -> None:
     plt = os.path.join(tmp, "plt_prod")
     base = os.path.join(tmp, "iso_prod")
     args = [f"infile={plt}", f"isoVal={ISO_VAL:g}", f"outfile_base={base}"]
-    cold = run_tool_counted("isosurface", args, (0, 0))
+    cold = run_tool_counted("isosurface", args, (0, 0, 0))
     torch.cuda.reset_peak_memory_stats()
-    warm = run_tool_counted("isosurface", args, (0, 0))
+    warm = run_tool_counted("isosurface", args, (0, 0, 0))
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     meta, names, fabs = load_plotfile_fabs(plt, names=["temp"])
@@ -972,11 +1131,12 @@ def phase_main_path(tmp: str, dev) -> None:
             "isosurface": lambda: extract_isosurface(ds, "temp", ISO_VAL)}
         # the main path's run: every count set to 0 just before, read just
         # after
-        gk.LAUNCHES = mk.LAUNCHES = 0
+        gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
         mef = [fn() for fn in stages.values()][-1]
-        launches = {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES}
+        launches = counts()
         L = case["n_levels"]
-        if launches != {"grad_mag": (1 + 7) * L, "stream_march": 0}:
+        if launches != {"grad_mag": (1 + 7) * L, "stream_march": 0,
+                        "stream_march_order_key": 0}:
             raise AssertionError(f"main path launches {launches}")
         if not (mef.n_elts > 0 and np.isfinite(mef.nodes).all()):
             raise AssertionError("main path: empty or non-finite surface")
@@ -1013,14 +1173,24 @@ def main() -> int:
         "name": "grad_mag", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/grad_mag.cu",
         "replaces": "peleanalysis_tpu/ops/pallas_kernels.py:36",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}, {
+        "launches": launches, **{k: kern[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}, {
         "name": "stream_march", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stream_march.cu",
         "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
         "launches": stream["launches"]["stream_march"],
-        "max_abs_err": march["max_abs_err"], "ms": march["ms"],
-        "plain_ms": march["plain_ms"]}]})
+        **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+        "library_ms": None}, {
+        # part of the march's port: the locality order of a float64 march
+        "name": "stream_march_order_key", "route": "cuda",
+        "source": "peleanalysis_tpu_torch/csrc/stream_march.cu",
+        "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
+        "launches": stream["launches"]["stream_march_order_key"],
+        **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

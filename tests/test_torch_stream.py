@@ -160,6 +160,143 @@ def test_f32_field_f64_positions_match_trace_level(case):
                                atol=EXTENT_TOL[np.float64])
 
 
+VARIANTS = {"f64": (torch.float64, torch.float64),
+            "f32": (torch.float32, torch.float32),
+            "f32_f64": (torch.float32, torch.float64),
+            "bf16_f64": (torch.bfloat16, torch.float64),
+            "bf16_f32": (torch.bfloat16, torch.float32)}
+
+
+@pytest.mark.parametrize("dtype, C", [(torch.float64, 3), (torch.float32, 4),
+                                      (torch.bfloat16, 4)])
+def test_prepare_field_layout(dtype, C):
+    """A float32 or bfloat16 cell is padded with a zero 4th component, a
+    float64 cell is not; values round as ``.to(dtype)`` rounds them."""
+    vec = torch.from_numpy(_rotating_case()[0])
+    field = mk.prepare_field(vec, dtype)
+    assert field.shape == vec.shape[1:] + (C,) and field.dtype == dtype
+    assert field.is_contiguous() and mk.COMPONENTS[dtype] == C
+    assert torch.equal(field[..., :3], vec.permute(1, 2, 3, 0).to(dtype))
+    assert not field[..., 3:].any()
+
+
+def _unpadded_march(field3, plo, dx, h, seeds, n_steps, dirs):
+    """The plain march as it read the ``[SX, SY, SZ, 3]`` field before the
+    kernel's field was padded."""
+    dt = seeds.dtype
+    SX, SY, SZ, _ = field3.shape
+    flat = field3.reshape(-1, 3)
+    plo_t, dx_t = torch.tensor(plo, dtype=dt), torch.tensor(dx, dtype=dt)
+    hi = torch.tensor([SX - 2, SY - 2, SZ - 2], dtype=dt)
+    corner = torch.tensor([(o[0] * SY + o[1]) * SZ + o[2]
+                           for o in mk.CORNER_OFFSETS_S])
+    tiny = torch.full((), torch.finfo(dt).tiny, dtype=dt)
+    h_half, h_t, h_sixth = (torch.full((), v, dtype=dt)
+                            for v in (0.5 * h, h, h / 6.0))
+    dirs = dirs[:, None]
+
+    def unit_vec(x):
+        xc = (x - plo_t) / dx_t - 0.5
+        b = torch.floor(xc)
+        ok = ((b >= 0) & (b <= hi)).all(dim=1)
+        b = torch.minimum(torch.clamp(b, min=0), hi)
+        t = torch.clamp(xc - b, 0.0, 1.0)
+        bi = b.long()
+        c = flat[((bi[:, 0] * SY + bi[:, 1]) * SZ + bi[:, 2])[:, None]
+                 + corner[None, :]].to(dt)
+        w1 = [[1 - t[:, d], t[:, d]] for d in range(3)]
+        v = None
+        for ci, (ox, oy, oz) in enumerate(mk.CORNER_OFFSETS_S):
+            term = c[:, ci] * ((w1[0][ox] * w1[1][oy]) * w1[2][oz])[:, None]
+            v = term if v is None else v + term
+        n = torch.sqrt((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1])
+                       + v[:, 2] * v[:, 2])
+        return dirs * v / torch.maximum(n, tiny)[:, None], ok
+
+    x, alive = seeds, torch.ones(seeds.shape[0], dtype=torch.bool)
+    out = [seeds]
+    for _ in range(n_steps):
+        k1, ok1 = unit_vec(x)
+        k2, ok2 = unit_vec(x + h_half * k1)
+        k3, ok3 = unit_vec(x + h_half * k2)
+        k4, ok4 = unit_vec(x + h_t * k3)
+        xn = x + h_sixth * (((k1 + 2 * k2) + 2 * k3) + k4)
+        alive = alive & ok1 & ok2 & ok3 & ok4
+        x = torch.where(alive[:, None], xn, x)
+        out.append(x)
+    return torch.stack(out), alive
+
+
+@pytest.mark.parametrize("var", sorted(VARIANTS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_march_torch_on_new_layout_equals_unpadded_march(case, var):
+    """``march_torch`` over ``prepare_field``'s layout equals the march over
+    the unpadded field bitwise, and ignores whatever the pad holds."""
+    vec, plo, dx, h, seeds, dirs, n = CASES[case]()
+    fdt, sdt = VARIANTS[var]
+    vec = torch.from_numpy(vec).to(sdt)
+    s, d = torch.from_numpy(seeds).to(sdt), torch.from_numpy(dirs).to(sdt)
+    field = mk.prepare_field(vec, fdt)
+    got, ok = mk.march_torch(field, plo, dx, h, s, n, d)
+    want, want_ok = _unpadded_march(
+        vec.permute(1, 2, 3, 0).to(fdt).contiguous(), plo, dx, h, s, n, d)
+    assert torch.equal(got, want) and torch.equal(ok, want_ok)
+    if field.shape[3] == 4:
+        field[..., 3] = float("nan")
+        again, again_ok = mk.march_torch(field, plo, dx, h, s, n, d)
+        assert torch.equal(again, got) and torch.equal(again_ok, ok)
+
+
+@pytest.mark.parametrize("shape", [(24, 20, 90), (4000, 20, 1500)])
+def test_order_key_is_a_locality_permutation(shape):
+    """The lines sorted by ``order_key``: a permutation that puts the two
+    directions apart and neighbouring seeds together; marching in that
+    order and writing each line at its own index (as the kernel does)
+    gives the march in seed order bitwise."""
+    vec, plo, dx, h, seeds, dirs, n = _rotating_case()
+    dx = tuple(1.0 / (s - 1) for s in shape)
+    rng = np.random.default_rng(3)
+    # seeds on a ring in random order, in both directions
+    a = rng.random(200) * 2 * np.pi
+    ring = np.stack([0.5 + 0.2 * np.cos(a), 0.5 + 0.2 * np.sin(a),
+                     np.full_like(a, 0.5)], 1)
+    s = torch.from_numpy(np.concatenate([ring, ring]))
+    d = torch.cat([torch.ones(200), -torch.ones(200)]).to(torch.float64)
+    before = mk.KEY_LAUNCHES
+    key = mk.order_key(shape, plo, dx, s, d)
+    assert mk.KEY_LAUNCHES == before        # no kernel launch on the CPU
+    assert key.dtype == torch.int32 and torch.equal(
+        key, mk.order_key_torch(shape, plo, dx, s, d))
+    assert (key >= 0).all() and torch.equal(key >> 30, (d < 0).int())
+    assert (key & ((1 << 30) - 1)).max() < 1 << 30
+    order = torch.argsort(key)
+    assert torch.equal(torch.sort(order).values, torch.arange(400))
+    assert torch.equal(s[order][torch.argsort(order)], s)
+    assert (d[order][:200] > 0).all()                 # + lines first
+    if shape[0] < 1000:
+        def step(p):       # mean distance between consecutive + lines
+            return float((p[1:200] - p[:199]).norm(dim=1).mean())
+        assert step(s[order]) < 0.5 * step(s)
+    if shape[0] < 1000:
+        field = mk.prepare_field(torch.from_numpy(vec))
+        want, want_ok = mk.march_torch(field, plo, dx, h, s, n, d)
+        pos, ok = mk.march_torch(field, plo, dx, h, s[order], n, d[order])
+        got, got_ok = torch.empty_like(pos), torch.empty_like(ok)
+        got[:, order], got_ok[order] = pos, ok
+        assert torch.equal(got, want) and torch.equal(got_ok, want_ok)
+
+
+@pytest.mark.parametrize("bad", ["seeds", "dirs"])
+def test_order_key_takes_float64_only(bad):
+    """Only the float64 march is ordered: the key refuses float32
+    positions or directions on every device."""
+    vec, plo, dx, h, seeds, dirs, n = _rotating_case()
+    args = dict(seeds=torch.from_numpy(seeds), dirs=torch.from_numpy(dirs))
+    args[bad] = args[bad].to(torch.float32)
+    with pytest.raises(TypeError):
+        mk.order_key(vec.shape[1:], plo, dx, args["seeds"], args["dirs"])
+
+
 def test_march_dispatcher_cpu_takes_plain_version():
     vec, plo, dx, h, seeds, dirs, n = _rotating_case()
     before = mk.LAUNCHES
@@ -179,6 +316,15 @@ def test_march_dispatcher_cpu_takes_plain_version():
     (dict(seeds=lambda s: s[:, :2]), ValueError),
     (dict(dirs=lambda d: d[:-1]), ValueError),
     (dict(dirs=lambda d: d.to(torch.float32)), ValueError),
+    # a float32 field's cells are padded to 4 components
+    (dict(field=lambda f: f.to(torch.float32)), ValueError),
+    # off the 16-byte boundary of the kernel's vector loads
+    (dict(field=lambda f: torch.empty(f.numel() + 1, dtype=f.dtype)[1:]
+          .view(f.shape)), ValueError),
+    # 2**31 elements or more: beyond the kernel's 32-bit offsets
+    (dict(field=lambda f: torch.empty((1024, 1024, 683, 3),
+                                      dtype=torch.float64, device="meta")),
+     ValueError),
 ])
 def test_march_dispatcher_rejects(bad, err):
     vec, plo, dx, h, seeds, dirs, n = _rotating_case()
@@ -197,6 +343,8 @@ def test_march_build_needs_no_import_time_toolkit():
     assert set(mk._ENTRY.values()) == {
         "stream_march_f64", "stream_march_f32", "stream_march_f32_f64",
         "stream_march_bf16_f64", "stream_march_bf16_f32"}
+    assert mk._KEY == "stream_march_key_f64"
+    assert mk.ORDERED == {(torch.float64, torch.float64)}
 
 
 # -- trace_streamlines ---------------------------------------------------------
