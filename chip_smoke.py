@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: build the CUDA kernels,
-check each against its plain PyTorch version, drive the grad, curvature,
-stream, sampleStreamlines and isosurface tools through their CLI on
+check each against its plain PyTorch version, drive the grad (also
+fluxMatch=1), curvature (also do_smooth=1), stream, sampleStreamlines,
+isosurface, conditionalMean and jpdf tools through their CLI on
 synthetic 3-level hierarchies, and time the main path (grad, curvature,
 isosurface).
 
@@ -9,8 +10,8 @@ isosurface).
 Phases (each prints one JSON line; any failure raises and exits non-zero):
   1 device   - refuse to run without torch.cuda; print the card's name and
                power limit (nvidia-smi)
-  2 build    - nvcc builds of peleanalysis_tpu_torch/csrc/grad_mag.cu and
-               stream_march.cu, started together
+  2 build    - nvcc builds of peleanalysis_tpu_torch/csrc/grad_mag.cu,
+               stream_march.cu and stats_hist.cu, started together
   3 kernel   - grad_mag kernel vs grad_mag_torch on the card, float32 and
                float64, with and without the magnitude: gradients bitwise,
                magnitude within 1 ulp; median times over 20 runs
@@ -21,6 +22,17 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                production, the time of march() (one call, and 10-launch
                batches), the field cells the stencils read, bytes, flops,
                bound, share of it and registers; the order key's time
+  3c stats   - stats_hist kernel vs its plain versions on the card, float32
+               and float64, at 1 M and at the production case's 19.4 M
+               cells, a third of them on bin edges or one ulp from them:
+               binned moments with and without min/max (shared and global
+               variants), joint pdfs of 1 and 3 pairs at 64 (shared) and
+               256 (global) bins; hits equal, sums within 1e-4 (float32) /
+               1e-10 (float64) of the largest, min/max equal, binned sums
+               also against a tree-summed reference, one counted
+               launch a wrapper call; at 19.4 M cells the time of each
+               entry point, its plain version, its bytes bound,
+               torch.bincount and a chunked one-hot torch.matmul
   4 main     - the repo's 3-level case (64^3 -> 120^3 finest patch) through
                `grad` and `curvature` (cli.main), cold then 3 warm runs;
                kernel launch counts, finiteness and the analytic gradient
@@ -49,6 +61,22 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   8 main path- grad, curvature and isosurface of one float32 state (the
                JAX bench's composite), median CUDA-event time of each, at
                the repo case and at production size
+  9 smooth   - `curvature do_smooth=1` (composite and per level) and
+               `grad fluxMatch=1` through cli.main at both sizes: CG
+               iterations, cold/warm wall, peak memory, 7 grad_mag launches
+               a level and none for fluxMatch; the float32 composite
+               solve's wall, device time, kernels and host waits (with
+               minus without smoothing); card vs CPU on the repo case
+  10 stats   - `conditionalMean` (temp over [300, 1801) in 64 bins,
+               density and a constant field averaged) and `jpdf` ((temp,
+               progress) with the bench's bounds; all pairs of three) at
+               both sizes: one binned launch a level, one joint launch a
+               level a run, the constant's mean, the hits, each pdf's mass
+               of 1, both kernels vs their plain versions level by level
+               on the tools' state (the tolerances of 3c), read / compute /
+               write, accumulate_stats_fused's CUDA-event time and its
+               device time by kernel
+               (torch.profiler); card vs CPU files on the repo case
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -80,12 +108,19 @@ from peleanalysis_tpu_torch.io.stream_data import (StreamData,
                                                    read_stream_data,
                                                    write_stream_data)
 from peleanalysis_tpu_torch.ops import grad_kernels as gk
+from peleanalysis_tpu_torch.ops import solve
+from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
 from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
                                             write_synthetic_plotfile)
+from peleanalysis_tpu_torch.tools.conditional_mean import (
+    accumulate_conditional_mean, accumulate_stats_fused, load_dense,
+    write_cm_dat)
 from peleanalysis_tpu_torch.tools.curvature import compute_curvature_dense
 from peleanalysis_tpu_torch.tools.grad import compute_grad_dense
+from peleanalysis_tpu_torch.tools.jpdf import (compute_jpdf_pairs,
+                                               normalize_pair, write_gnuplot)
 from peleanalysis_tpu_torch.tools.stream import write_tecplot_lines
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -175,10 +210,11 @@ def phase_device() -> str:
 def phase_build() -> None:
     t0 = time.perf_counter()
     # one nvcc per source, all started together
-    with ThreadPoolExecutor(2) as ex:
-        paths = list(ex.map(lambda m: m.build(verbose=True), (gk, mk)))
+    with ThreadPoolExecutor(3) as ex:
+        paths = list(ex.map(lambda m: m.build(verbose=True), (gk, mk, sk)))
     gk.load_library()
     mk.load_library()
+    sk.load_library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(p, ROOT) for p in paths]})
 
@@ -514,14 +550,12 @@ def phase_main(tmp: str) -> int:
     grad_args = [f"infile={plt}", "gradVar=temp"]
     curv_args = [f"infile={plt}", "progressName=temp"]
     # the main path's run: every count set to 0 just before, read just after
-    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+    reset_counts()
     cold = {"grad": run_tool("grad", grad_args, L),
             "curvature": run_tool("curvature", curv_args, L)}
     launches = gk.LAUNCHES
-    if launches != (1 + 7) * L or mk.LAUNCHES or mk.KEY_LAUNCHES:
-        raise AssertionError(f"main path launched {launches} grad_mag, "
-                             f"{mk.LAUNCHES} stream_march and "
-                             f"{mk.KEY_LAUNCHES} order key kernels")
+    if launches != (1 + 7) * L or any(list(counts().values())[1:]):
+        raise AssertionError(f"main path launches {counts()}")
     warm = {t: [run_tool(t, a, L) for _ in range(3)]
             for t, a in (("grad", grad_args), ("curvature", curv_args))}
     check = check_outputs(plt + "_gt", plt + "_K")
@@ -551,13 +585,21 @@ def write_seed_mef(path: str, n_theta: int, n_phi: int, extra=()) -> int:
 
 def counts() -> dict:
     return {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES,
-            "stream_march_order_key": mk.KEY_LAUNCHES}
+            "stream_march_order_key": mk.KEY_LAUNCHES,
+            "stats_binned": sk.BINNED_LAUNCHES,
+            "stats_joint": sk.JOINT_LAUNCHES}
+
+
+def reset_counts() -> None:
+    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+    sk.BINNED_LAUNCHES = sk.JOINT_LAUNCHES = 0
 
 
 def run_tool_counted(tool: str, args, expect) -> float:
     """One CLI run; expect = its launches of each kernel, as counts()
-    orders them.  The tools march float64 fields, so every march launch
-    follows one order key launch."""
+    orders them, and none of the kernels past its end.  The tools march
+    float64 fields, so every march launch follows one order key launch."""
+    expect = tuple(expect) + (0,) * (len(counts()) - len(expect))
     before = counts()
     t0 = time.perf_counter()
     rc = cli.main([tool, *args])
@@ -678,11 +720,12 @@ def phase_stream(tmp: str) -> dict:
     # the stream path's run: every count set to 0 just before, read just
     # after; one grad_mag, one order key and one march launch per seeded
     # level
-    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+    reset_counts()
     cold = {k: run_tool_counted(*v) for k, v in runs.items()}
     launches = counts()
     if launches != {"grad_mag": L, "stream_march": 2 * L,
-                    "stream_march_order_key": 2 * L}:
+                    "stream_march_order_key": 2 * L, "stats_binned": 0,
+                    "stats_joint": 0}:
         raise AssertionError(f"stream path launches {launches}")
     warm = {k: [run_tool_counted(*v) for _ in range(2)]
             for k, v in runs.items()}
@@ -983,7 +1026,7 @@ def phase_iso(tmp: str, dev) -> dict:
     args = [f"infile={plt}", f"isoVal={ISO_VAL:g}", f"outfile_base={base}"]
     # the isosurface path's run: every count set to 0 just before, read
     # just after
-    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+    reset_counts()
     cold = run_tool_counted("isosurface", args, (0, 0, 0))
     launches = counts()
     warm = [run_tool_counted("isosurface", args, (0, 0, 0))
@@ -1131,12 +1174,13 @@ def phase_main_path(tmp: str, dev) -> None:
             "isosurface": lambda: extract_isosurface(ds, "temp", ISO_VAL)}
         # the main path's run: every count set to 0 just before, read just
         # after
-        gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
+        reset_counts()
         mef = [fn() for fn in stages.values()][-1]
         launches = counts()
         L = case["n_levels"]
         if launches != {"grad_mag": (1 + 7) * L, "stream_march": 0,
-                        "stream_march_order_key": 0}:
+                        "stream_march_order_key": 0, "stats_binned": 0,
+                        "stats_joint": 0}:
             raise AssertionError(f"main path launches {launches}")
         if not (mef.n_elts > 0 and np.isfinite(mef.nodes).all()):
             raise AssertionError("main path: empty or non-finite surface")
@@ -1148,6 +1192,655 @@ def phase_main_path(tmp: str, dev) -> None:
           "stage over warm runs", **out})
 
 
+# -- phase 3c -------------------------------------------------------------------
+# the production case's cells (128^3 + 128^3 + 248^3), flattened
+PROD_CELLS = 2 * 128 ** 3 + 248 ** 3
+STATS_BINS = 64
+# (lo, hi) of the three variables of the stats checks: temp, progress,
+# density ranges of testing.default_fields, as the JAX bench bins them
+STATS_RANGES = ((300.0, 1801.0), (-0.1, 1.1), (0.05, 1.3))
+# sums, of each output's largest value: a float32 kernel adds its terms
+# into per-block shared-memory bins (warp sums, pairwise) before its float64
+# reduction, where the plain version adds them all in float64; in float64
+# the plain version's index_add_ adds up to ~250 K terms a bin one after
+# another (n eps = 3e-11), and is the less exact of the two (tree_sums)
+STATS_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+
+
+def stats_fields(n: int, dtype, dev, seed: int, nbins: int = STATS_BINS):
+    """Three fields of n cells over STATS_RANGES widened by a tenth each
+    side; every third cell sits on a float64 bin edge rounded to dtype or
+    one ulp either side of it.  A mask keeping ~90% of the cells."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = []
+    for lo, hi in STATS_RANGES:
+        span = hi - lo
+        v = (torch.rand(n, generator=g, device=dev, dtype=torch.float64)
+             * 1.2 * span + lo - 0.1 * span).to(dtype)
+        e = torch.tensor(lo + span * np.arange(nbins + 1) / nbins,
+                         device=dev).to(dtype)
+        inf = torch.full_like(e, float("inf"))
+        near = torch.cat([e, torch.nextafter(e, inf),
+                          torch.nextafter(e, -inf)])
+        k = v[::3].numel()
+        v[::3] = near[torch.randint(0, near.numel(), (k,), generator=g,
+                                    device=dev)]
+        out.append(v)
+    mask = torch.rand(n, generator=g, device=dev) > 0.1
+    return out, mask
+
+
+def stats_edges(nbins: int, dtype, folded: bool):
+    return [sk.bin_transform(lo, hi, nbins, dtype, folded)
+            for lo, hi in STATS_RANGES]
+
+
+def check_stats(k, p, dtype, what: str):
+    """Kernel vs plain: hits (k[0], p[0]) equal, the other float outputs
+    within STATS_RTOL of their largest value, min/max equal; returns the
+    largest absolute difference and the largest over its output's
+    largest value."""
+    if not torch.equal(k[0], p[0]):
+        raise AssertionError(f"{what}: hits differ from the plain version")
+    worst = worst_rel = 0.0
+    for i, (a, b) in enumerate(zip(k[1:], p[1:]), start=1):
+        if a is None and b is None:
+            continue
+        if i >= 3:                           # binned min/max: exact
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: min/max differ")
+            continue
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        if not err <= STATS_RTOL[dtype] * scale:
+            raise AssertionError(f"{what}: output {i} off by {err} of "
+                                 f"{scale}")
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / scale if scale else 0.0)
+    return worst, worst_rel
+
+
+def tree_sums(bv, av, w, mask, edges, nbins, shift):
+    """Binned sums and sums of squares (no clamp) with each bin's terms,
+    rounded in the values' dtype as the kernel rounds them, added by
+    torch.sum's tree in float64: nearly exact, to tell which of the kernel
+    and its plain version is off where they differ."""
+    f = sk._bin_coord(bv, edges, nbins)
+    ok = mask & (f >= 0) & (f < nbins)
+    idx = f.clamp(0, nbins - 1).long()
+    vs = av - shift.reshape((-1,) + (1,) * bv.ndim)
+    wt = torch.as_tensor(w, dtype=av.dtype, device=av.device)
+    terms = [(wt * vs).double(), (wt * (vs * vs)).double()]
+    out = torch.zeros((2, nbins, av.shape[0]), dtype=torch.float64,
+                      device=av.device)
+    for b in range(nbins):
+        sel = ok & (idx == b)
+        for t in range(2):
+            out[t, b] = terms[t][:, sel].sum(dim=1)
+    return out
+
+
+def tree_errs(k, p, ref) -> dict:
+    """The largest difference of the kernel's and the plain version's sums
+    and sums of squares from tree_sums, over each output's largest value."""
+    def rel(x):
+        return max(float((x[t].double() - ref[t]).abs().max())
+                   / (float(ref[t].abs().max()) or 1.0) for t in range(2))
+    return {"kernel_vs_tree": rel(k[1:3]), "plain_vs_tree": rel(p[1:3])}
+
+
+def lib_binned(bv, av, w, mask, edges, nbins, shift, onehot: bool):
+    """The same accumulators from library calls: torch.bincount(weights=)
+    or a one-hot torch.matmul in 64K-cell chunks (the JAX design)."""
+    f = sk._bin_coord(bv, edges, nbins)
+    ok = mask & (f >= 0) & (f < nbins)
+    idx = f.clamp(0, nbins - 1).long()
+    ww = torch.where(ok, torch.full_like(bv, w), torch.zeros_like(bv))
+    vs = av[0] - shift[0]
+    rhs = torch.stack([torch.ones_like(vs), vs, vs * vs], dim=1)
+    if not onehot:
+        return [torch.bincount(idx, weights=ww * rhs[:, c], minlength=nbins)
+                for c in range(3)]
+    bins = torch.arange(nbins, device=bv.device)
+    acc = torch.zeros((nbins, 3), dtype=bv.dtype, device=bv.device)
+    for c0 in range(0, bv.numel(), 1 << 16):
+        sl = slice(c0, c0 + (1 << 16))
+        oh = (idx[sl, None] == bins).to(bv.dtype) * ww[sl, None]
+        acc += oh.T @ rhs[sl]
+    return acc
+
+
+def lib_joint(vals, w, mask, edges, nbins, pairs, shifts, onehot: bool):
+    """Joint histograms from library calls, as lib_binned."""
+    T = vals[0].dtype
+    idx = [sk._bin_coord(v, e, nbins).clamp(0, nbins - 1).long()
+           for v, e in zip(vals, edges)]
+    ww = torch.where(mask, torch.full_like(vals[0], w),
+                     torch.zeros_like(vals[0]))
+    fs = [v - shifts[k] for k, v in enumerate(vals)]
+    out = []
+    for i, j in pairs:
+        if not onehot:
+            b = idx[i] * nbins + idx[j]
+            out += [torch.bincount(b, weights=x, minlength=nbins * nbins)
+                    for x in (ww, ww * fs[i], ww * fs[j])]
+            continue
+        bins = torch.arange(nbins, device=vals[0].device)
+        acc = torch.zeros((3, nbins, nbins), dtype=T, device=vals[0].device)
+        for c0 in range(0, vals[0].numel(), 1 << 16):
+            sl = slice(c0, c0 + (1 << 16))
+            o1 = (idx[i][sl, None] == bins).to(T) * ww[sl, None]
+            o2 = (idx[j][sl, None] == bins).to(T)
+            lhs = torch.stack([o1, o1 * fs[i][sl, None], o1 * fs[j][sl, None]])
+            acc += torch.einsum("xcb,cd->xbd", lhs, o2)
+        out.append(acc)
+    return out
+
+
+def stats_times(fn, plain, lib, onehot, nbytes, n=10) -> dict:
+    ms = cuda_ms(fn, n=n)
+    bound_ms, bound_by = bound(nbytes, 0.0, torch.float32)
+    return {"ms": ms, "plain_ms": cuda_ms(plain, n=3, warmup=1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "share_of_bound": bound_ms / ms,
+            "library_ms": cuda_ms(lib, n=n),
+            "onehot_matmul_ms": cuda_ms(onehot, n=3, warmup=1)
+            if onehot is not None else None}
+
+
+def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
+    """Every variant of both entry points against its plain version on
+    ``fields`` (from stats_fields); appends a record to ``cases``, keeps the
+    largest error per entry in ``worst`` and counts wrapper calls."""
+    (v0, v1, v2), mask = fields
+    n = v0.numel()
+    av = torch.stack([v1, v2])
+    shift = torch.tensor([0.5, 0.7], dtype=dtype, device=dev)
+    e0 = stats_edges(STATS_BINS, dtype, folded=True)[0]
+    # binned moments: shared variant with and without min/max, and the
+    # global variant (16384 bins do not fit in shared memory)
+    for nbins, minmax in ((STATS_BINS, False), (STATS_BINS, True),
+                          (16384, True)):
+        e = e0 if nbins == STATS_BINS else sk.bin_transform(
+            300.0, 1801.0, nbins, dtype, True)
+        args = (v0, av, 8.0, mask, e, nbins, False, minmax, shift)
+        k, p = sk.binned_moments(*args), sk.binned_moments_torch(*args)
+        calls[0] += 1
+        torch.cuda.synchronize()
+        shared = sk.binned_shared_bytes(nbins, 2, minmax, dtype) \
+            <= sk.max_shared_bytes()
+        err, rel = check_stats(k, p, dtype,
+                               f"binned {n} {dtype} {nbins} {minmax}")
+        worst["binned"] = max(worst["binned"], err)
+        cases.append({"entry": "binned", "cells": n,
+                      "dtype": str(dtype)[6:], "nbins": nbins,
+                      "minmax": minmax,
+                      "variant": "shared" if shared else "global",
+                      "max_abs_err": err, "max_err_over_scale": rel,
+                      "hits": int(float(p[0].sum()) / 8.0)})
+        if nbins == STATS_BINS and not minmax:
+            cases[-1].update(tree_errs(k, p, tree_sums(
+                v0, av, 8.0, mask, e, nbins, shift)))
+            if not cases[-1]["kernel_vs_tree"] <= STATS_RTOL[dtype]:
+                raise AssertionError(f"binned {n} {dtype}: kernel "
+                                     f"{cases[-1]['kernel_vs_tree']} off "
+                                     "the tree sums")
+    # joint pdfs: 1 pair with the tools' folded single-pair edges, 3 pairs
+    # with joint_pdf_multi's divided ones; 64 bins (shared) and 256 (global)
+    for nbins in (STATS_BINS, 256):
+        for pairs, folded in ((((0, 1),), True),
+                              (((0, 1), (0, 2), (1, 2)), False)):
+            edges = stats_edges(nbins, dtype, folded)
+            sh = torch.tensor([1000.0, 0.5, 0.7], dtype=dtype, device=dev)
+            args = ([v0, v1, v2], 2.0 ** -21, mask, edges, nbins,
+                    list(pairs), sh)
+            k, p = sk.joint_hist(*args), sk.joint_hist_torch(*args)
+            calls[1] += 1
+            torch.cuda.synchronize()
+            shared = sk.joint_shared_bytes(nbins, dtype) \
+                <= sk.max_shared_bytes()
+            err, rel = check_stats(k, p, dtype,
+                                   f"joint {n} {dtype} {nbins} {len(pairs)}")
+            worst["joint"] = max(worst["joint"], err)
+            cases.append({"entry": "joint", "cells": n,
+                          "dtype": str(dtype)[6:], "nbins": nbins,
+                          "pairs": len(pairs),
+                          "variant": "shared" if shared else "global",
+                          "folded": folded, "max_abs_err": err,
+                          "max_err_over_scale": rel})
+
+
+def phase_stats_kernel(dev) -> dict:
+    t0 = time.perf_counter()
+    worst = {"binned": 0.0, "joint": 0.0}
+    cases = []
+    # each wrapper call on the card is one counted launch; the plain
+    # versions count none
+    before = (sk.BINNED_LAUNCHES, sk.JOINT_LAUNCHES)
+    calls = [0, 0]
+    # 1 M cells, and the production case's 19.4 M flattened: more cells a
+    # block than any level of the main path gives a launch (its largest is
+    # 248^3).  Phase 10 adds the tools' smooth fields, where a block's
+    # cells crowd into few bins.
+    for n, seed in ((1 << 20, 1), (PROD_CELLS, 2)):
+        for dtype in (torch.float64, torch.float32):
+            fields = stats_fields(n, dtype, dev, seed)
+            check_stats_cases(fields, dtype, dev, worst, cases, calls)
+            del fields
+    launched = [sk.BINNED_LAUNCHES - before[0], sk.JOINT_LAUNCHES - before[1]]
+    if launched != calls:
+        raise AssertionError(f"stats kernel launches {launched} for "
+                             f"{calls} wrapper calls")
+    # times at the production case's 19.4 M cells, float32 (the tools'
+    # default), CUDA events per call, on the fields just checked
+    (v0, v1, v2), mask = stats_fields(PROD_CELLS, torch.float32, dev, 2)
+    av, shift = v1[None], torch.tensor([0.5], device=dev)
+    e0 = stats_edges(STATS_BINS, torch.float32, True)[0]
+    b_args = (v0, av, 8.0, mask, e0, STATS_BINS, False, False, shift)
+    cell_b = 4 + 4 + 1             # binned value, averaged value, mask byte
+    times = {"binned": stats_times(
+        lambda: sk.binned_moments(*b_args),
+        lambda: sk.binned_moments_torch(*b_args),
+        lambda: lib_binned(v0, av, 8.0, mask, e0, STATS_BINS, shift, False),
+        lambda: lib_binned(v0, av, 8.0, mask, e0, STATS_BINS, shift, True),
+        cell_b * PROD_CELLS)}
+    mm_args = b_args[:7] + (True, shift)
+    times["binned_minmax"] = {
+        "ms": cuda_ms(lambda: sk.binned_moments(*mm_args), n=10),
+        "plain_ms": cuda_ms(lambda: sk.binned_moments_torch(*mm_args), n=3,
+                            warmup=1)}
+    sh = torch.tensor([1000.0, 0.5, 0.7], device=dev)
+    for name, nbins, pairs, folded in (
+            ("joint", STATS_BINS, [(0, 1)], True),
+            ("joint_3pairs", STATS_BINS, [(0, 1), (0, 2), (1, 2)], False),
+            ("joint_256_global", 256, [(0, 1)], True)):
+        edges = stats_edges(nbins, torch.float32, folded)
+        nv = len({i for p in pairs for i in p})
+        j_args = ([v0, v1, v2], 2.0 ** -21, mask, edges, nbins, pairs, sh)
+        times[name] = stats_times(
+            lambda: sk.joint_hist(*j_args),
+            lambda: sk.joint_hist_torch(*j_args),
+            lambda: lib_joint(*j_args[:6], sh, False),
+            (lambda: lib_joint(*j_args[:6], sh, True))
+            if nbins == STATS_BINS else None,
+            (4 * nv + 1) * PROD_CELLS)
+    # the library yardsticks compute the same accumulators
+    lb = lib_binned(v0, av, 8.0, mask, e0, STATS_BINS, shift, False)
+    kb = sk.binned_moments(*b_args)
+    if not torch.allclose(lb[0].double(), kb[0].double(), rtol=1e-6):
+        raise AssertionError("bincount hits differ from the kernel's")
+    emit({"phase": "stats_kernel_vs_plain", "tolerance": "hits equal; sums "
+          "within 1e-4 (float32) / 1e-10 (float64) of the largest value, "
+          "of the plain version's and of tree_sums; min/max equal",
+          "seconds": time.perf_counter() - t0, "cases": cases,
+          "launches": {"binned": launched[0], "joint": launched[1]},
+          "production_cells": PROD_CELLS,
+          "timing": "float32, CUDA events per call; library = "
+          "torch.bincount(weights=) per accumulator with the bin index as "
+          "torch ops; onehot = torch.matmul in 64K-cell chunks",
+          "times": times})
+    out = {}
+    for key, tkey in (("binned", "binned"), ("joint", "joint")):
+        t = times[tkey]
+        out[key] = {"max_abs_err": worst[key], "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+    return out
+
+
+# -- phase 9 --------------------------------------------------------------------
+def kernel_profile(fn, names=()) -> dict:
+    """fn() once under torch.profiler: wall ms, device ms and kernel
+    launches, and the device ms of the kernels whose names hold each of
+    ``names``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own events: kernels (ctypes launches included, which no
+    # PyTorch op owns), copies and memsets
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"wall_ms": wall * 1e3,
+           "device_ms": sum(e.device_time_total for e in dev) / 1e3,
+           "kernels": sum(1 for e in dev
+                          if not e.name.startswith(("Memcpy", "Memset")))}
+    if names:
+        out["device_ms_of"] = {n: sum(e.device_time_total for e in dev
+                                      if n in e.name) / 1e3 for n in names}
+    return out
+
+
+def solve_cost(plt: str, dev) -> dict:
+    """The composite smoothing solve's part of a float32 curvature call:
+    wall, device time, kernels and host waits with do_smooth=1 minus
+    without, and the host's share of the solve's wall time."""
+    ds = DenseAmrState.from_plotfile(plt, dev, names=["temp"])
+    plain = dict(interp="quadratic")
+    smooth = dict(interp="quadratic", do_smooth=True)
+    for kw in (plain, smooth):
+        compute_curvature_dense(ds, "temp", **kw)        # warm
+    solve.ITERATIONS.clear()
+    a = kernel_profile(lambda: compute_curvature_dense(ds, "temp", **smooth))
+    iters = list(solve.ITERATIONS)
+    b = kernel_profile(lambda: compute_curvature_dense(ds, "temp", **plain))
+    waits = (host_waits(lambda: compute_curvature_dense(ds, "temp", **smooth))
+             - host_waits(lambda: compute_curvature_dense(ds, "temp",
+                                                          **plain)))
+    d = {k: a[k] - b[k] for k in a}
+    return {"iterations": iters, "with_smooth": a, "without": b,
+            "solve": d, "solve_share_of_wall": d["wall_ms"] / a["wall_ms"],
+            "host_share_of_solve": 1.0 - d["device_ms"] / d["wall_ms"],
+            "kernels_per_iteration": d["kernels"] / max(sum(iters), 1),
+            "host_waits": waits}
+
+
+def phase_smooth(tmp: str, dev) -> None:
+    out = {}
+    for name, case, plt in (("repo", REPO_CASE, "plt_repo"),
+                            ("production", PROD_CASE, "plt_prod")):
+        plt = os.path.join(tmp, plt)
+        L = case["n_levels"]
+        res = {}
+        for mode, keys in (("composite", []),
+                           ("per_level", ["smooth_composite=0"])):
+            args = [f"infile={plt}", "progressName=temp", "do_smooth=1",
+                    *keys, f"outfile={plt}_Ks"]
+            solve.ITERATIONS.clear()
+            cold = run_tool("curvature", args, L)       # 7 grad_mag a level
+            torch.cuda.reset_peak_memory_stats()
+            solve.ITERATIONS.clear()
+            warm = run_tool("curvature", args, L)
+            res[f"curvature_{mode}"] = {
+                "cold_s": cold, "warm_s": warm,
+                "cg_iterations": list(solve.ITERATIONS),
+                "grad_mag_launches": 7 * L,
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        args = [f"infile={plt}", "gradVar=temp", "fluxMatch=1",
+                f"outfile={plt}_gfm"]
+        cold = run_tool_counted("grad", args, (0,))     # no kernel: plain
+        torch.cuda.reset_peak_memory_stats()
+        warm = run_tool_counted("grad", args, (0,))
+        res["grad_fluxMatch"] = {
+            "cold_s": cold, "warm_s": warm,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        check_outputs(plt + "_gfm", plt + "_Ks")
+        res["composite_solve_cost"] = solve_cost(plt, dev)
+        out[name] = res
+    # card vs CPU on the repo case: the smoothing in float64 (a float32 CG
+    # that stalls follows its rounding), fluxMatch in float32
+    plt = os.path.join(tmp, "plt_repo")
+    cmp = {}
+    for composite in (True, False):
+        runs = {}
+        for where in (dev, "cpu"):
+            st = DenseAmrState.from_plotfile(plt, where, names=["temp"],
+                                             dtype=torch.float64)
+            solve.ITERATIONS.clear()
+            runs[str(where)] = (compute_curvature_dense(
+                st, "temp", interp="quadratic", do_smooth=True,
+                smooth_composite=composite), list(solve.ITERATIONS))
+        (card, it_card), (cpu, it_cpu) = runs[str(dev)], runs["cpu"]
+        if it_card != it_cpu:
+            raise AssertionError(f"CG iterations card {it_card} vs CPU "
+                                 f"{it_cpu}")
+        key = "composite" if composite else "per_level"
+        cmp[f"curvature_{key}_float64"] = {
+            **compare_devices(card, cpu, f"smooth {key}"),
+            "cg_iterations": it_card}
+    card = DenseAmrState.from_plotfile(plt, dev)
+    cpu = DenseAmrState.from_plotfile(plt, "cpu")
+    cmp["grad_fluxMatch_float32"] = compare_devices(
+        compute_grad_dense(card, "temp", interp="quadratic", flux_match=True),
+        compute_grad_dense(cpu, "temp", interp="quadratic", flux_match=True),
+        "fluxMatch")
+    emit({"phase": "smooth_fluxmatch", "tolerance": "card vs CPU: same "
+          "non-finite cells; rtol 1e-6, atol 1e-6 max|cpu|; equal CG "
+          "iterations", "cases": out, "card_vs_cpu": cmp})
+
+
+# -- phase 10 -------------------------------------------------------------------
+CONST = 2.5
+CM_KEYS = ["binComp=temp", "avgComps=density const", "nBins=64", "binMin=300",
+           "binMax=1801"]                                        # bench.py:601
+JPDF_PAIR = ["vars=temp progress", "nBins=64", "useminmax1=300 1801",
+             "useminmax2=-0.1 1.1", "output_gnuplot=1", "output_plotfile=0"]
+JPDF_3VAR = ["vars=temp progress density", "nBins=64", "output_gnuplot=1",
+             "output_plotfile=0"]
+
+
+def cm_check(path: str, finest_cells: int) -> dict:
+    """The constant field's conditional mean is the constant, its std 0;
+    the hits are the finest-equivalent cells of the domain (temp stays in
+    [300, 1801)); density's means lie in its range."""
+    t = np.loadtxt(path, skiprows=2)
+    n = t[:, -2]
+    pop = n > 0
+    const_avg = t[pop, 6]
+    if not np.allclose(const_avg, CONST, rtol=1e-6):
+        raise AssertionError(f"constant field averages {const_avg}")
+    if not np.all(t[pop, 8] <= 1e-3 * CONST):
+        raise AssertionError("constant field has a spread")
+    if not abs(n.sum() - finest_cells) <= 1e-6 * finest_cells:
+        raise AssertionError(f"hits {n.sum()} != {finest_cells}")
+    dens = t[pop, 5]
+    if not (dens.min() >= 0.2 - 1e-6 and dens.max() <= 1.0 + 1e-6):
+        raise AssertionError("density averages outside [0.2, 1]")
+    return {"bins_populated": int(pop.sum()), "hits": float(n.sum()),
+            "max_const_err": float(np.abs(const_avg - CONST).max())}
+
+
+def pdf_mass(base: str, names) -> dict:
+    """Each written pdf sums to 1: its unnormalized mass is the valid
+    cells' volume, the domain's."""
+    out = {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            g = np.loadtxt(os.path.join(base, f"Pdf_{a}_{b}.gpd"))
+            s = float(g[:, 2].sum())
+            if not abs(s - 1.0) <= 1e-5:
+                raise AssertionError(f"pdf {a}-{b} sums to {s}")
+            out[f"{a}_{b}"] = s
+    return out
+
+
+def stats_split(plt: str, dev, tmp: str) -> dict:
+    """Read, compute (device work and the fetch) and write of both tools,
+    timed apart on the host clock."""
+    from peleanalysis_tpu_torch.parmparse import ParmParse
+    pp = ParmParse({})
+    t0 = time.perf_counter()
+    ds = load_dense(plt, ["temp", "density", "const"], None, dev, pp)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    h, s, q, mn, mx = accumulate_conditional_mean(
+        ds, "temp", ["density", "const"], 64, 300.0, 1801.0)
+    t2 = time.perf_counter()
+    finest_cells = ds.meta.geoms[-1].domain.size
+    if h.sum() != finest_cells:          # exact: counts times the weights
+        raise AssertionError(f"hits {h.sum()} != {finest_cells}")
+    write_cm_dat(os.path.join(tmp, "split_cm.dat"), "temp",
+                 ["density", "const"], 64, 300.0, 1801.0, h, s, q)
+    t3 = time.perf_counter()
+    names = ["temp", "progress", "density"]
+    ds3 = load_dense(plt, names, None, dev, pp)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    lo_hi = {"temp": (300.0, 1801.0), "progress": (-0.1, 1.1),
+             "density": (0.05, 1.3)}
+    fields = [[d[ds3.comp(n)] for d in ds3.data] for n in names]
+    pairs = ((0, 1), (0, 2), (1, 2))
+    b, bx1, bx2 = compute_jpdf_pairs(ds3, fields,
+                                     [lo_hi[n][0] for n in names],
+                                     [lo_hi[n][1] for n in names], 64, pairs)
+    t5 = time.perf_counter()
+    for p, (i, j) in enumerate(pairs):
+        bn, _, _, C1, C2 = normalize_pair(b[p], bx1[p], bx2[p],
+                                          *lo_hi[names[i]], *lo_hi[names[j]],
+                                          1.0)
+        write_gnuplot(os.path.join(tmp, f"split_{p}.gpd"), C1, C2, bn)
+    t6 = time.perf_counter()
+    return {"conditionalMean": {"read_s": t1 - t0, "compute_s": t2 - t1,
+                                "write_s": t3 - t2},
+            "jpdf_3var": {"read_s": t4 - t3, "compute_s": t5 - t4,
+                          "write_s": t6 - t5}}
+
+
+def compare_text_files(a: str, b: str, rtol: float) -> float:
+    """Two text outputs: the same words, numbers within rtol of the file's
+    largest value; returns the largest difference over that value."""
+    def read(path):
+        nums, words = [], []
+        with open(path) as f:
+            for tok in f.read().split():
+                try:
+                    nums.append(float(tok))
+                except ValueError:
+                    words.append(tok)
+        return np.asarray(nums), words
+    (x, wa), (y, wb) = read(a), read(b)
+    if wa != wb or x.shape != y.shape:
+        raise AssertionError(f"{a} and {b} differ in layout")
+    scale = float(np.abs(y).max()) or 1.0
+    err = float(np.abs(x - y).max()) / scale
+    if not err <= rtol:
+        raise AssertionError(f"{a} vs {b}: {err} of the largest value")
+    return err
+
+
+def stats_levels_vs_plain(ds) -> dict:
+    """The stats wrappers against their plain versions level by level on a
+    tool's own state: the main path's shapes and smooth fields, where a
+    block's cells crowd into few bins.  Binned with min/max (temp bins,
+    density and progress averaged), joint of 1 pair (folded edges) and 3
+    pairs (divided), 64 bins; returns the largest absolute error and the
+    largest over its output's largest value, per entry, and the binned
+    sums' largest distance from tree_sums."""
+    ic = [ds.comp(n) for n in ("temp", "progress", "density")]
+    worst = {"binned": [0.0, 0.0], "joint": [0.0, 0.0]}
+    tree = {"kernel_vs_tree": 0.0, "plain_vs_tree": 0.0}
+
+    def keep(entry, errs):
+        worst[entry] = [max(a, b) for a, b in zip(worst[entry], errs)]
+
+    for lev, d in enumerate(ds.data):
+        T, m, w = d.dtype, ds.valid_mask(lev), 8.0 ** -lev
+        vals = [d[i] for i in ic]
+        av = torch.stack([vals[2], vals[1]])
+        e = stats_edges(STATS_BINS, T, True)[0]
+        args = (vals[0], av, w, m, e, STATS_BINS, False, True,
+                av.mean(dim=(1, 2, 3)))
+        k, p = sk.binned_moments(*args), sk.binned_moments_torch(*args)
+        keep("binned", check_stats(k, p, T, f"binned, level {lev}"))
+        errs = tree_errs(k, p, tree_sums(*args[:6], args[8]))
+        if not errs["kernel_vs_tree"] <= STATS_RTOL[T]:
+            raise AssertionError(f"binned, level {lev}: {errs}")
+        tree = {key: max(tree[key], errs[key]) for key in tree}
+        sh = torch.stack([v.mean() for v in vals])
+        for pairs, folded in (([(0, 1)], True),
+                              ([(0, 1), (0, 2), (1, 2)], False)):
+            args = (vals, w, m, stats_edges(STATS_BINS, T, folded),
+                    STATS_BINS, pairs, sh)
+            keep("joint", check_stats(sk.joint_hist(*args),
+                                      sk.joint_hist_torch(*args), T,
+                                      f"joint {len(pairs)} pairs, level "
+                                      f"{lev}"))
+    out = {k: {"max_abs_err": a, "max_err_over_scale": r}
+           for k, (a, r) in worst.items()}
+    out["binned"].update(tree)
+    return out
+
+
+def phase_stats(tmp: str, dev):
+    t0 = time.perf_counter()
+    out, launches = {}, None
+    f = default_fields()
+    fields = {"temp": f["temp"], "progress": f["progress"],
+              "density": f["density"],
+              "const": lambda x, y, z: np.full_like(x, CONST)}
+    for name, case in (("repo", REPO_CASE), ("production", PROD_CASE)):
+        plt = os.path.join(tmp, f"plt_stats_{name}")
+        bas = write_synthetic_plotfile(plt, fields=fields, **case)[1]
+        L = case["n_levels"]
+        finest_cells = (case["n_cell"] * 2 ** (L - 1)) ** 3
+        cm_out = os.path.join(tmp, f"cm_{name}.dat")
+        runs = {
+            "conditionalMean": ("conditionalMean", [
+                f"infile={plt}", *CM_KEYS, f"outfile={cm_out}"], (0,) * 3
+                + (L, 0)),
+            "jpdf_pair": ("jpdf", [f"infile={plt}", *JPDF_PAIR,
+                                   "outSuffix=_jp2"], (0,) * 4 + (L,)),
+            "jpdf_3var": ("jpdf", [f"infile={plt}", *JPDF_3VAR,
+                                   "outSuffix=_jp3"], (0,) * 4 + (L,))}
+        # the stats path's run: every count set to 0 just before, read just
+        # after; one binned launch a level for conditionalMean, one joint
+        # launch a level for each jpdf run (all pairs in one launch)
+        reset_counts()
+        cold = {k: run_tool_counted(*v) for k, v in runs.items()}
+        if name == "repo":
+            launches = counts()
+            if launches != {"grad_mag": 0, "stream_march": 0,
+                            "stream_march_order_key": 0, "stats_binned": L,
+                            "stats_joint": 2 * L}:
+                raise AssertionError(f"stats path launches {launches}")
+        torch.cuda.reset_peak_memory_stats()
+        warm = {k: run_tool_counted(*v) for k, v in runs.items()}
+        peak = torch.cuda.max_memory_allocated()
+        checks = {"conditionalMean": cm_check(cm_out, finest_cells),
+                  "jpdf_pair": pdf_mass(plt + "_jp2", ["temp", "progress"]),
+                  "jpdf_3var": pdf_mass(plt + "_jp3", ["temp", "progress",
+                                                       "density"])}
+        ds = DenseAmrState.from_plotfile(plt, dev,
+                                         names=["temp", "progress",
+                                                "density"])
+        fused = lambda: accumulate_stats_fused(  # noqa: E731
+            ds, "temp", ["density"], 64, 300.0, 1801.0,
+            ("temp", "progress"), (300.0, 1801.0, -0.1, 1.1), 64)
+        (_, _, _), (b, _, _) = fused()
+        if not abs(float(b.sum()) - 1.0) <= 1e-5:
+            raise AssertionError(f"fused jpdf mass {float(b.sum())}")
+        out[name] = {"case": case, "cells": sum(ba.total_cells()
+                                                for ba in bas),
+                     "cold_s": cold, "warm_s": warm,
+                     "max_memory_allocated": peak, "checks": checks,
+                     "kernel_vs_plain": stats_levels_vs_plain(ds),
+                     "layers": stats_split(plt, dev, tmp),
+                     "stats_fused_ms": cuda_ms(fused, n=10),
+                     "stats_fused_profile": kernel_profile(
+                         fused, ("binned_kernel", "binned_finish",
+                                 "joint_kernel", "joint_finish"))}
+    # card vs CPU on the repo case, file against file
+    plt = os.path.join(tmp, "plt_stats_repo")
+    cpu_cm = os.path.join(tmp, "cm_repo_cpu.dat")
+    for tool, args in (("conditionalMean", [f"infile={plt}", *CM_KEYS,
+                                            f"outfile={cpu_cm}"]),
+                       ("jpdf", [f"infile={plt}", *JPDF_3VAR,
+                                 "outSuffix=_jp3cpu"])):
+        if cli.main([tool, *args, "device=cpu"]) != 0:
+            raise RuntimeError(f"{tool} device=cpu failed")
+    cmp = {"conditionalMean": compare_text_files(
+        os.path.join(tmp, "cm_repo.dat"), cpu_cm, 1e-5)}
+    for a, b in (("temp", "progress"), ("temp", "density"),
+                 ("progress", "density")):
+        cmp[f"jpdf_{a}_{b}"] = compare_text_files(
+            os.path.join(plt + "_jp3", f"Pdf_{a}_{b}.gpd"),
+            os.path.join(plt + "_jp3cpu", f"Pdf_{a}_{b}.gpd"), 1e-5)
+    emit({"phase": "stats_tools", "keys": {"conditionalMean": CM_KEYS,
+                                           "jpdf_pair": JPDF_PAIR,
+                                           "jpdf_3var": JPDF_3VAR},
+          "launches": launches, "tools": out,
+          "seconds": time.perf_counter() - t0,
+          "card_vs_cpu": {"tolerance": "1e-5 of each file's largest value",
+                          "max_err_over_scale": cmp}})
+    return launches, {k: max(o["kernel_vs_plain"][k]["max_abs_err"]
+                             for o in out.values())
+                      for k in ("binned", "joint")}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1155,6 +1848,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernel(dev)
     march = phase_march_kernel(dev)
+    stats_k = phase_stats_kernel(dev)
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
         launches = phase_main(tmp)
@@ -1167,6 +1861,10 @@ def main() -> int:
         phase_iso_cpu(iso, dev)
         phase_iso_prod(tmp, dev)
         phase_main_path(tmp, dev)
+        phase_smooth(tmp, dev)
+        stats_launches, stats_err = phase_stats(tmp, dev)
+    for k, err in stats_err.items():
+        stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{
@@ -1190,7 +1888,17 @@ def main() -> int:
         "launches": stream["launches"]["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
-        "library_ms": None}]})
+        "library_ms": None}, {
+        # no Pallas kernel: the XLA one-hot contractions of binned_stats
+        "name": "stats_binned", "route": "cuda",
+        "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
+        "replaces": "peleanalysis_tpu/ops/stats.py:30",
+        "launches": stats_launches["stats_binned"], **stats_k["binned"]}, {
+        # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
+        "name": "stats_joint", "route": "cuda",
+        "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
+        "replaces": "peleanalysis_tpu/ops/stats.py:184",
+        "launches": stats_launches["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

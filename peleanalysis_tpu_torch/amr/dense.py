@@ -78,6 +78,9 @@ class DenseAmrState:
         self._masks: dict = {}
         # the isosurface engine's per-state inputs (geom/marching_cubes.py)
         self._iso_cache: dict = {}
+        # device boundary faces of the covered regions, by (lev, d), for
+        # flux-matched gradients (ops/restrict.py)
+        self.flux_face_masks: dict = {}
 
     # -- construction --------------------------------------------------------
     @classmethod
@@ -189,6 +192,7 @@ class DenseAmrState:
         st._in_level_np = self._in_level_np
         st._covered_np = self._covered_np
         st._masks = self._masks
+        st.flux_face_masks = self.flux_face_masks
         return st
 
     # -- back to a plotfile ---------------------------------------------------

@@ -3,7 +3,7 @@ key=value... [inputs]``.
 
 The same ParmParse key surface as ``python -m peleanalysis_tpu``, for the
 tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
-``sampleStreamlines``).  Extra keys:
+``sampleStreamlines``, ``conditionalMean``, ``jpdf``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions) and the global ``dtype=float32|float64``.
 """
@@ -24,6 +24,8 @@ TOOLS = {
     "stream": ".tools.stream",
     "sampleStreamlines": ".tools.sample_streamlines",
     "isosurface": ".tools.isosurface",
+    "conditionalMean": ".tools.conditional_mean",
+    "jpdf": ".tools.jpdf",
 }
 
 

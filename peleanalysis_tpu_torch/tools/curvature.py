@@ -6,7 +6,12 @@ the replacement for the reference's Src/curvature.cpp.  Semantics:
 
   * progress var c = (s - progMin)/(progMax - progMin), min/max scanned from
     the file unless given (curvature.cpp:137-158, 308-321)
-  * G = grad c (centered on filled ghosts); normgrad = -max(1e-14, |G|)
+  * optional implicit smoothing (I - beta lap) c~ = c (curvature.cpp:328-406):
+    a composite CG over all levels (the MLMG analog: covered coarse cells
+    follow the fine solution by average_down, ghosts couple fine to coarse
+    through the fill) or a per-level CG, coarse to fine, with the coarse-fine
+    values pinned (ops/solve.py)
+  * G = grad c~ (centered on filled ghosts); normgrad = -max(1e-14, |G|)
     (curvature.cpp:465-484)
   * flame normal N = G / normgrad = -G/|G| (curvature.cpp:487-501)
   * MeanCurvature = 0.5 * div(N) (curvature.cpp:508-546), each dN_i/dx_i
@@ -23,7 +28,8 @@ the replacement for the reference's Src/curvature.cpp.  Semantics:
 Every gradient is one ``grad_mag`` call per level (the CUDA kernel on the
 card): G with its magnitude, then N_x, N_y, N_z and, with Gaussian
 curvature, G_x, G_y, G_z without it — 7 launches per level, 3 more with
-strain.  The smoothing solve (do_smooth=1) is not ported yet.
+strain.  The smoothing solve launches no gradient kernel: its Laplacian is
+plain torch.
 """
 from __future__ import annotations
 
@@ -32,18 +38,18 @@ from typing import Optional, Sequence
 import torch
 
 from .. import config
-from ..amr.dense import DenseAmrState
+from ..amr.dense import DenseAmrState, needs_clustering
 from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import PlotfileReader
-from ..ops.dense_fill import fill_dense_multilevel
+from ..ops.dense_fill import fill_dense_arrays, fill_dense_multilevel
 from ..ops.grad_kernels import grad_mag
+from ..ops.restrict import average_down_all
+from ..ops.solve import cg_solve, cg_solve_composite
+from ..ops.stencil import laplacian
 from ..parmparse import ParmParse
 from .grad import grad_bc, refuse_sparse, refuse_unported
 
 D = 3
-
-_SMOOTH_NOT_PORTED = ("do_smooth=1 (implicit smoothing solve) is not ported "
-                      "yet (ROADMAP.md Queue 1: do_smooth and fluxMatch)")
 
 
 def _masked_minmax(vs, ms) -> torch.Tensor:
@@ -72,15 +78,55 @@ def _grad_multilevel(meta, lmeta, field_list, mask_list, bc, interp,
             for lev, g in enumerate(grown)]
 
 
-def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_gauss, do_strain,
-                   get_strain_tensor, do_velnormal, do_threshold, threshold,
-                   replicate_strain_bug):
+def _smooth(meta, lmeta, prog, mask_list, valid_masks, covered_masks, bc,
+            interp, composite, smooth_time, smooth_iters, smooth_rtol):
+    """The smoothing solve (I - smooth_time lap) c~ = c of the progress
+    variable, composite or level by level (curvature.cpp:328-406)."""
+    L = meta.n_levels
+    if composite:
+        # one solve over the valid cells of all levels: covered coarse cells
+        # track the fine solution via average_down, ghosts couple fine to
+        # coarse via the fill, both inside the operator
+        vols = [meta.geoms[lev].cell_volume() for lev in range(L)]
+
+        def apply_A(x_list):
+            xd = average_down_all(meta, lmeta, x_list, covered_masks)
+            grown = fill_dense_multilevel(meta, lmeta, xd, mask_list, 1, bc,
+                                          interp)
+            return [xd[lev] - smooth_time
+                    * laplacian(grown[lev], meta.geoms[lev].dx, 1)
+                    for lev in range(L)]
+
+        smoothed = cg_solve_composite(apply_A, prog, prog, valid_masks, vols,
+                                      smooth_iters, rtol=smooth_rtol)
+        return average_down_all(meta, lmeta, smoothed, covered_masks)
+    smoothed = list(prog)
+    for lev in range(L):
+        dx = meta.geoms[lev].dx
+
+        def apply_A(x, lev=lev, dx=dx):
+            flds = smoothed[:lev] + [x] + prog[lev + 1:]
+            grown = fill_dense_arrays(meta, lmeta, flds, mask_list, lev, 1,
+                                      bc, interp)
+            return x - smooth_time * laplacian(grown, dx, 1)
+
+        smoothed[lev] = cg_solve(apply_A, prog[lev], prog[lev],
+                                 mask_list[lev][None], smooth_iters,
+                                 rtol=smooth_rtol)
+    return smoothed
+
+
+def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_smooth,
+                   smooth_composite, smooth_time, smooth_iters, smooth_rtol,
+                   do_gauss, do_strain, get_strain_tensor, do_velnormal,
+                   do_threshold, threshold, replicate_strain_bug):
     """The curvature derived-field chain as a function of per-level
     tensors (closes over metadata and flags only)."""
     need_vel = do_strain or do_velnormal
     L = meta.n_levels
 
-    def pipeline(data_list, mask_list, pmin, pmax):
+    def pipeline(data_list, mask_list, pmin, pmax, valid_masks=None,
+                 covered_masks=None):
         def grads(fields, with_mag=False):
             return _grad_multilevel(meta, lmeta, fields, mask_list, bc,
                                     interp, with_mag)
@@ -88,7 +134,10 @@ def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_gauss, do_strain,
         scal = [d[ic: ic + 1] for d in data_list]
         inv = 1.0 / (pmax - pmin)
         prog = [(s - pmin) * inv for s in scal]
-        smoothed = prog
+        smoothed = (_smooth(meta, lmeta, prog, mask_list, valid_masks,
+                            covered_masks, bc, interp, smooth_composite,
+                            smooth_time, smooth_iters, smooth_rtol)
+                    if do_smooth else prog)
 
         # -- gradient of the progress variable, with its magnitude -----------
         gm = grads(smoothed, with_mag=True)
@@ -187,6 +236,10 @@ def compute_curvature_dense(
     prog_min: Optional[float] = None,
     prog_max: Optional[float] = None,
     do_smooth: bool = False,
+    smooth_time: float = 1.0e-7,
+    smooth_iters: int = 50,
+    smooth_rtol: Optional[float] = 1.0e-10,
+    smooth_composite: bool = True,
     do_gauss: bool = True,
     do_strain: bool = False,
     get_strain_tensor: bool = False,
@@ -198,8 +251,6 @@ def compute_curvature_dense(
     sym_dir: Optional[Sequence[int]] = None,
     interp: str = "linear",
 ) -> DenseAmrState:
-    if do_smooth:
-        raise NotImplementedError(_SMOOTH_NOT_PORTED)
     meta = dstate.meta
     bc = grad_bc([False] * D, sym_dir)
     ic = dstate.comp(progress_name)
@@ -227,13 +278,19 @@ def compute_curvature_dense(
         raise ValueError("progMin must be less than progMax")
 
     pipeline = _make_pipeline(
-        meta, dstate.lmeta, ic, iv, bc, interp, do_gauss, do_strain,
+        meta, dstate.lmeta, ic, iv, bc, interp, do_smooth, smooth_composite,
+        smooth_time, smooth_iters, smooth_rtol, do_gauss, do_strain,
         get_strain_tensor, do_velnormal, do_threshold, threshold,
         replicate_strain_bug)
     dt, dev = dstate.dtype, dstate.device
+    valid = covered = None
+    if do_smooth:
+        valid = [dstate.valid_mask(l)[None] for l in range(meta.n_levels)]
+        covered = [dstate.covered_mask(l) for l in range(meta.n_levels)]
     out_levels = pipeline(list(dstate.data), masks,
                           torch.full((), prog_min, dtype=dt, device=dev),
-                          torch.full((), prog_max, dtype=dt, device=dev))
+                          torch.full((), prog_max, dtype=dt, device=dev),
+                          valid, covered)
     names = _output_names(progress_name, vel_names, need_vel, do_gauss,
                           do_strain, get_strain_tensor, do_velnormal)
     return dstate.with_data(names, out_levels)
@@ -263,6 +320,8 @@ def _output_names(progress_name, vel_names, need_vel, do_gauss, do_strain,
 
 def main(args: dict) -> None:
     """CLI: curvature infile=<plt> [progressName=temp] [progMin= progMax=]
+    [do_smooth=0] [smoothing_time=1e-7] [smooth_composite=1] [smooth_iters=50]
+    [smooth_rtol=1e-10  (0 disables the residual stop: fixed smooth_iters)]
     [do_gaussCurv=1] [do_strain=0] [useFileMinMax=1] [getStrainTensor=0]
     [do_velnormal=0] [threshold_prog=0] [threshold=1e-4]
     [replicate_strain_bug=0] [is_per=0 0 0] [sym_dir=0 0 0]
@@ -296,6 +355,10 @@ def main(args: dict) -> None:
         prog_min=pp.query_float("progMin", None),
         prog_max=pp.query_float("progMax", None),
         do_smooth=do_smooth,
+        smooth_time=pp.query_float("smoothing_time", 1.0e-7),
+        smooth_composite=pp.query_bool("smooth_composite", True),
+        smooth_iters=pp.query_int("smooth_iters", 50),
+        smooth_rtol=(pp.query_float("smooth_rtol", 1.0e-10) or None),
         do_gauss=pp.query_bool("do_gaussCurv", True),
         get_strain_tensor=pp.query_bool("getStrainTensor", False),
         do_threshold=pp.query_bool("threshold_prog", False),
@@ -306,13 +369,20 @@ def main(args: dict) -> None:
         sym_dir=pp.query_int_list("sym_dir", [0, 0, 0]),
         interp=pp.query_str("cf_interp", "quadratic"),
     )
-    if do_smooth:
-        raise NotImplementedError(_SMOOTH_NOT_PORTED)
-
     meta, names, fabs = load_plotfile_fabs(
         infile, names=names, max_level=pp.query_int("finestLevel", None),
         is_periodic=[bool(p) for p in is_per])
-    if not pp.query_bool("force_dense", False):
+    sparse = (not pp.query_bool("force_dense", False) and meta.n_levels > 1
+              and needs_clustering(meta.bas[-1]))
+    if sparse and do_smooth:
+        # the composite solve needs the dense model (no clustered path)
+        ba = meta.bas[-1]
+        waste = ba.minimal_box().size / max(ba.total_cells(), 1)
+        print(f"curvature: finest union bbox is {waste:.1f}x its valid "
+              "cells — the composite smoothing solve requires the dense "
+              "model (no clustered path); expect the corresponding device "
+              "memory footprint or pass finestLevel= to cap levels")
+    elif sparse:
         refuse_sparse(meta, [meta.n_levels - 1])
     dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
                                            config.compute_dtype)

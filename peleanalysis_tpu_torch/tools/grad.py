@@ -6,7 +6,9 @@ replacement for the reference's Src/grad.cpp: read a plotfile variable
 coarse-fine interpolation by default), and write a plotfile with components
 ``[gradVar, aux..., <var>_gx, <var>_gy, <var>_gz, ||grad<var>||]``.  Each
 level's four output components come from one ``grad_mag`` call, the CUDA
-kernel on the card.
+kernel on the card.  ``fluxMatch=1`` takes the MLMG-style flux-matched
+gradient instead (``ops/restrict.py``), plain torch as in the JAX package,
+where that path has no kernel either.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from ..amr.hierarchy import load_plotfile_fabs
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import FOEXTRAP, REFLECT_EVEN
 from ..ops.grad_kernels import grad_mag
+from ..ops.restrict import flux_matched_gradient
+from ..ops.stencil import magnitude
 from ..parmparse import ParmParse
 
 
@@ -58,11 +62,8 @@ def compute_grad_dense(dstate: DenseAmrState, var: str,
                        sym_dir: Optional[Sequence[int]] = None,
                        interp: str = "linear",
                        flux_match: bool = False) -> DenseAmrState:
-    """Ghost fill + gradient kernel per level."""
-    if flux_match:
-        raise NotImplementedError(
-            "fluxMatch=1 is not ported yet (ROADMAP.md Queue 1: do_smooth "
-            "and fluxMatch)")
+    """Ghost fill + gradient kernel per level; with ``flux_match`` the
+    flux-matched gradient of all levels (plain torch)."""
     meta = dstate.meta
     bc = grad_bc([False] * meta.ndim, sym_dir)
     ic = dstate.comp(var)
@@ -70,9 +71,18 @@ def compute_grad_dense(dstate: DenseAmrState, var: str,
     scalars = [d[ic: ic + 1] for d in dstate.data]
     grown = fill_dense_multilevel(meta, dstate.lmeta, scalars, masks, 1, bc,
                                   interp)
+    if flux_match:
+        # MLMG-style: c-f interface faces take the restricted fine flux
+        # (grad.cpp:178-219 composite apply + getFluxes)
+        covered = [dstate.covered_mask_np(l) for l in range(meta.n_levels)]
+        gall = flux_matched_gradient(meta, dstate.lmeta, grown, covered,
+                                     dstate.flux_face_masks)
+        gcomps = [torch.cat([*g, magnitude(*g)], dim=0) for g in gall]
+    else:
+        gcomps = [grad_mag(g.contiguous(), meta.geoms[lev].dx, with_mag=True)
+                  for lev, g in enumerate(grown)]
     out_levels = []
-    for lev, g in enumerate(grown):
-        gcomp = grad_mag(g.contiguous(), meta.geoms[lev].dx, with_mag=True)
+    for lev, gcomp in enumerate(gcomps):
         passthrough = [dstate.data[lev][dstate.comp(n): dstate.comp(n) + 1]
                        for n in (var,) + tuple(aux)]
         out_levels.append(torch.cat(passthrough + [gcomp], dim=0))
@@ -84,7 +94,7 @@ def compute_grad_dense(dstate: DenseAmrState, var: str,
 def main(args: dict) -> None:
     """CLI: grad infile=<plt> [gradVar=temp] [outfile=...]
     [Aux_Variables=...] [is_per=1 1 1] [sym_dir=0 0 0] [finestLevel=]
-    [cf_interp=quadratic] [force_dense=0] [device=cuda|cpu]."""
+    [cf_interp=quadratic] [fluxMatch=0] [force_dense=0] [device=cuda|cpu]."""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     var = pp.query_str("gradVar", "temp")

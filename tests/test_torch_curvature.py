@@ -129,10 +129,3 @@ def test_float32_gaussian_curvature_nonfinite_where_reference_is(
     for d in got.data:
         keep = [c for c in range(d.shape[0]) if c != ik]
         assert torch.isfinite(d[keep]).all()
-
-
-def test_do_smooth_raises(small_plotfile, tmp_path):
-    with pytest.raises(NotImplementedError, match="do_smooth"):
-        cli.main(["curvature", f"infile={small_plotfile}", "device=cpu",
-                  "do_smooth=1", f"outfile={tmp_path / 'out'}"])
-    assert not (tmp_path / "out").exists()

@@ -97,8 +97,7 @@ def test_grad_cli_parity(small_plotfile, tmp_path, monkeypatch, dtype_key):
     _compare_plotfiles(ours, ref, np.float64 if dtype_key else np.float32)
 
 
-@pytest.mark.parametrize("key", ["fluxMatch=1", "ndevices=2",
-                                 "shape_bucket=8"])
+@pytest.mark.parametrize("key", ["ndevices=2", "shape_bucket=8"])
 def test_unported_options_raise(small_plotfile, tmp_path, key):
     with pytest.raises(NotImplementedError, match="not ported yet|no PyTorch"):
         cli.main(["grad", f"infile={small_plotfile}", "device=cpu", key,
@@ -120,7 +119,7 @@ def test_sparse_refinement_raises():
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):
-    assert cli.main(["jpdf", "infile=x"]) == 2
+    assert cli.main(["integral", "infile=x"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli.main(["noSuchTool"]) == 2
     assert cli.main(["--help"]) == 0

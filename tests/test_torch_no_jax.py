@@ -66,7 +66,8 @@ def test_every_port_module_imports_without_jax():
               "stream.march_kernels", "stream.trace", "stream.surface",
               "tools.stream", "tools.sample_streamlines", "geom.mc_tables",
               "geom.marching_cubes", "geom.marching_squares", "io.xdmf",
-              "tools.isosurface"):
+              "tools.isosurface", "ops.restrict", "ops.solve", "ops.stats",
+              "ops.stats_kernels", "tools.conditional_mean", "tools.jpdf"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -86,6 +87,7 @@ def test_cli_help_runs_without_jax():
     assert "grad" in res.stdout and "curvature" in res.stdout
     assert "stream" in res.stdout and "sampleStreamlines" in res.stdout
     assert "isosurface" in res.stdout
+    assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
 
 
 def test_isosurface_cli_runs_without_jax(tmp_path):
@@ -104,3 +106,27 @@ def test_isosurface_cli_runs_without_jax(tmp_path):
                str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert "wrote" in res.stdout
+
+
+def test_stats_clis_run_without_jax(tmp_path):
+    """conditionalMean and jpdf through the port's CLI, outputs read back."""
+    res = _run("import os, sys\n"
+               "import numpy as np\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "os.chdir(sys.argv[1])\n"
+               "write_synthetic_plotfile('plt', n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "assert cli.main(['conditionalMean', 'infile=plt', "
+               "'binComp=temp', 'avgComps=density', 'nBins=8', "
+               "'binMin=300', 'binMax=1801', 'outfile=cm.dat', "
+               "'device=cpu']) == 0\n"
+               "assert np.loadtxt('cm.dat', skiprows=2).shape == (8, 7)\n"
+               "assert cli.main(['jpdf', 'infile=plt', 'vars=temp density', "
+               "'nBins=8', 'output_gnuplot=1', 'device=cpu']) == 0\n"
+               "g = np.loadtxt('plt/Pdf_temp_density.gpd')\n"
+               "assert abs(g[:, 2].sum() - 1) < 1e-5\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "wrote cm.dat" in res.stdout and "jpdf done" in res.stdout
