@@ -11,7 +11,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   1 device   - refuse to run without torch.cuda; print the card's name and
                power limit (nvidia-smi)
   2 build    - nvcc builds of peleanalysis_tpu_torch/csrc/grad_mag.cu,
-               stream_march.cu and stats_hist.cu, started together
+               stream_march.cu and stats_hist.cu and the g++ build of the
+               native host library (native/vismf_io.cpp, fmt.cpp), started
+               together
   3 kernel   - grad_mag kernel vs grad_mag_torch on the card, float32 and
                float64, with and without the magnitude: gradients bitwise,
                magnitude within 1 ulp; median times over 20 runs
@@ -41,11 +43,19 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                finiteness, and the analytic radial-line check
   5 prod     - a 3-level case with a 248^3 finest patch (19.5 M cells), one
                warm run of each tool, peak device memory and a per-layer
-               split (read / device compute / write)
+               split (read / device compute / write); the float64 write
+               split into its steps on the host path (the plain version:
+               device-to-host copy, transpose and cast, min/max, FAB bytes,
+               headers) and on the device path (pack, one copy a level,
+               tables, files), its device-to-host copies counted
+               (torch.profiler), and the two plotfiles byte-equal
   5b stream  - the same case seeded from a 130k-node sphere MEF through
                `stream` and `sampleStreamlines`, with the same measurements,
                and the trace under torch.profiler (device-to-host copy and
-               march kernel device times), float64 and bfloat16-packed
+               march kernel device times), float64 and bfloat16-packed;
+               the Tecplot text of the production lines from the native
+               formatter byte-equal to the parent's Python formatting,
+               both timed
   6 cpu      - compute_grad_dense, compute_curvature_dense and
                trace_streamlines of the repo case on the card vs on the CPU
                (plain versions); every marchEngine name launches the march
@@ -77,13 +87,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                write, accumulate_stats_fused's CUDA-event time and its
                device time by kernel
                (torch.profiler); card vs CPU files on the repo case
+  11 host io - at production size, every level of the grad, stream and
+               stats plotfiles read by the native loader (load_fabs) and
+               box by box (read_box): bitwise equal, both timed, with the
+               loader's thread count; the card's float32 <-> float64
+               conversions of quiet NaNs bitwise equal to the host's
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import filecmp
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -98,11 +115,18 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from peleanalysis_tpu_torch import cli
-from peleanalysis_tpu_torch.amr.dense import DenseAmrState
-from peleanalysis_tpu_torch.amr.hierarchy import load_plotfile_fabs
+from peleanalysis_tpu_torch import cli, native
+from peleanalysis_tpu_torch.amr.dense import DenseAmrState, _box_slices
+from peleanalysis_tpu_torch.amr.hierarchy import (load_plotfile_fabs,
+                                                  output_layout,
+                                                  write_level_fabs,
+                                                  write_level_records)
 from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
+from peleanalysis_tpu_torch.io.fab import fab_header_str
+from peleanalysis_tpu_torch.io.fab_pack import fetch_level, level_records
 from peleanalysis_tpu_torch.io.mef import MEF, read_mef, write_mef
+from peleanalysis_tpu_torch.io.plotfile import (PlotfileReader,
+                                                write_plotfile_header)
 from peleanalysis_tpu_torch.io.stream_data import (StreamData,
                                                    compute_inside_nodes,
                                                    read_stream_data,
@@ -209,12 +233,15 @@ def phase_device() -> str:
 # -- phase 2 --------------------------------------------------------------------
 def phase_build() -> None:
     t0 = time.perf_counter()
-    # one nvcc per source, all started together
-    with ThreadPoolExecutor(3) as ex:
-        paths = list(ex.map(lambda m: m.build(verbose=True), (gk, mk, sk)))
+    # one nvcc per source and the g++ build, all started together
+    with ThreadPoolExecutor(4) as ex:
+        jobs = [ex.submit(m.build, verbose=True) for m in (gk, mk, sk)]
+        jobs.append(ex.submit(native.build))
+        paths = [j.result() for j in jobs]
     gk.load_library()
     mk.load_library()
     sk.load_library()
+    native.get_lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": [os.path.relpath(p, ROOT) for p in paths]})
 
@@ -751,9 +778,146 @@ def phase_stream(tmp: str) -> dict:
 
 
 # -- phase 5 --------------------------------------------------------------------
+def same_tree(a: str, b: str) -> int:
+    """Raise unless directories a and b hold the same files, byte for
+    byte; returns the bytes compared."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root)
+                      for d, _, fs in os.walk(root) for f in fs)
+    if files(a) != files(b):
+        raise AssertionError(f"{a} and {b} hold different files")
+    for f in files(a):
+        if not filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                           shallow=False):
+            raise AssertionError(f"{f} differs between {a} and {b}")
+    return sum(os.path.getsize(os.path.join(a, f)) for f in files(a))
+
+
+def host_write_split(ds, path: str) -> dict:
+    """The float64 plotfile write as the port made it before the device
+    writer (the plain host version), step by step: one copy of each level
+    to the host; box by box a numpy transpose to [comp, k, j, i] and cast;
+    each box's per-component min/max of its cast values; the FAB bytes;
+    the Header and _H text."""
+    from peleanalysis_tpu_torch.io.plotfile import (_write_fab_files,
+                                                    _write_vismf_h)
+    meta, nc = ds.meta, len(ds.names)
+    geoms, bas = output_layout(meta)
+    t = dict.fromkeys(("d2h_s", "transpose_cast_s", "minmax_s",
+                       "fab_bytes_s", "headers_s"), 0.0)
+    t0 = time.perf_counter()
+    hosts = [d.cpu().numpy() for d in ds.data]
+    t["d2h_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_plotfile_header(path, ds.names, meta.time, geoms, meta.ref_ratio,
+                          bas, meta.level_steps)
+    t["headers_s"] += time.perf_counter() - t0
+    for lev, ba in enumerate(meta.bas):
+        bbox = ds.lmeta[lev].bbox
+        wins = [hosts[lev][(slice(None),) + _box_slices(b, bbox)] for b in ba]
+        t0 = time.perf_counter()
+        recs = [np.ascontiguousarray(np.transpose(w, (0, 3, 2, 1)),
+                                     dtype=np.float64) for w in wins]
+        t1 = time.perf_counter()
+        cast = [np.asarray(w, dtype=np.float64) for w in wins]
+        mins = np.array([[float(c[k].min()) for k in range(nc)]
+                         for c in cast])
+        maxs = np.array([[float(c[k].max()) for k in range(nc)]
+                         for c in cast])
+        t2 = time.perf_counter()
+        d = os.path.join(path, f"Level_{lev}")
+        entries = _write_fab_files(
+            d, "Cell", len(ba), lambda f, i: (f.write(fab_header_str(
+                bas[lev][i], nc)), recs[i].tofile(f)), 64)
+        t3 = time.perf_counter()
+        _write_vismf_h(d, "Cell", bas[lev], nc, entries, mins, maxs)
+        t4 = time.perf_counter()
+        t["transpose_cast_s"] += t1 - t0
+        t["minmax_s"] += t2 - t1
+        t["fab_bytes_s"] += t3 - t2
+        t["headers_s"] += t4 - t3
+    return t
+
+
+def device_write_split(ds, path: str) -> dict:
+    """to_plotfile step by step: each level packed on the card (slice,
+    permute, cast, min/max tables), its one copy to pinned host memory,
+    the tables' zero signs settled, the FAB bytes, the Header and _H."""
+    from peleanalysis_tpu_torch.io.plotfile import (_write_fab_files,
+                                                    _write_vismf_h)
+    meta, nc = ds.meta, len(ds.names)
+    geoms, bas = output_layout(meta)
+    t = dict.fromkeys(("pack_s", "d2h_s", "tables_s", "fab_bytes_s",
+                       "headers_s"), 0.0)
+    t0 = time.perf_counter()
+    write_plotfile_header(path, ds.names, meta.time, geoms, meta.ref_ratio,
+                          bas, meta.level_steps)
+    t["headers_s"] += time.perf_counter() - t0
+    for lev, ba in enumerate(bas):
+        t0 = time.perf_counter()
+        packed = ds.packed_level(lev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        host = fetch_level(packed)
+        t2 = time.perf_counter()
+        payloads, mins, maxs = level_records(packed, host,
+                                             [b.shape for b in ba])
+        t3 = time.perf_counter()
+        d = os.path.join(path, f"Level_{lev}")
+        entries = _write_fab_files(
+            d, "Cell", len(ba), lambda f, i: (f.write(fab_header_str(
+                ba[i], nc)), f.write(payloads[i])), 64)
+        t4 = time.perf_counter()
+        _write_vismf_h(d, "Cell", ba, nc, entries, mins, maxs)
+        t5 = time.perf_counter()
+        for k, v in zip(("pack_s", "d2h_s", "tables_s", "fab_bytes_s",
+                         "headers_s"), (t1 - t0, t2 - t1, t3 - t2, t4 - t3,
+                                        t5 - t4)):
+            t[k] += v
+    return t
+
+
+def d2h_copies(fn) -> int:
+    """Device-to-host copies the card makes during fn() (torch.profiler)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name.startswith("Memcpy DtoH"))
+
+
+def write_checks(res, base: str) -> dict:
+    """The device writer's plotfile (``base``, from to_plotfile) against
+    the plain host writer's, byte for byte; the write split on both paths;
+    one device-to-host copy a level."""
+    plain = base + "_plain"
+    t0 = time.perf_counter()
+    write_level_fabs(res.meta, res.names, res.level_fabs(), plain)
+    plain_s = time.perf_counter() - t0
+    nbytes = same_tree(base, plain)
+    host = host_write_split(res, base + "_host")
+    same_tree(base + "_host", plain)
+    device = device_write_split(res, base + "_dev")
+    same_tree(base + "_dev", plain)
+    copies = d2h_copies(lambda: res.to_plotfile(base + "_prof"))
+    if copies != res.meta.n_levels:
+        raise AssertionError(f"to_plotfile: {copies} device-to-host copies "
+                             f"for {res.meta.n_levels} levels")
+    nonfinite = sum(int((~torch.isfinite(d)).sum()) for d in res.data)
+    for d in (plain, base + "_host", base + "_dev", base + "_prof"):
+        shutil.rmtree(d)
+    return {"bytes_equal": nbytes, "plain_write_s": plain_s,
+            "host_split": host, "device_split": device,
+            "d2h_copies": copies, "nonfinite_cells": nonfinite}
+
+
 def layer_split(plt: str, dev) -> dict:
     """Read, device compute and write of each tool, timed apart (host
-    clock; the compute ends in a synchronize)."""
+    clock; the compute ends in a synchronize), and the write's checks."""
     out = {}
     for tool in ("grad", "curvature"):
         t0 = time.perf_counter()
@@ -766,10 +930,13 @@ def layer_split(plt: str, dev) -> dict:
             res = compute_curvature_dense(ds, "temp", interp="quadratic")
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        res.to_plotfile(os.path.join(os.path.dirname(plt), f"split_{tool}"))
+        split = os.path.join(os.path.dirname(plt), f"split_{tool}")
+        res.to_plotfile(split)
         t3 = time.perf_counter()
         out[tool] = {"read_s": t1 - t0, "compute_s": t2 - t1,
-                     "write_s": t3 - t2}
+                     "write_s": t3 - t2,
+                     "write": write_checks(res, split)}
+        shutil.rmtree(split)
     return out
 
 
@@ -816,6 +983,19 @@ def profiled_trace(fn) -> dict:
             + device_ms("RadixSort")}
 
 
+def tecplot_python(names, lines: np.ndarray) -> bytes:
+    """The Tecplot text as the port formatted it before the native
+    formatter: one Python ``%`` format a line, the JAX package's numpy
+    text wherever no NaN appears."""
+    nl, st, nc = lines.shape
+    zone = (" ".join(["%.9g"] * nc) + "\n") * st
+    parts = [("VARIABLES = " + " ".join(names) + "\n").encode()]
+    for i in range(nl):
+        parts.append(f'ZONE T="line{i}" I={st} DATAPACKING=POINT\n'.encode())
+        parts.append((zone % tuple(lines[i].ravel().tolist())).encode())
+    return b"".join(parts)
+
+
 def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
     """Read, trace (fill + gradient + march + sampling + the copy of the
     lines to the host) and write of the stream tool, timed apart; then the
@@ -836,8 +1016,17 @@ def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
     write_stream_data(os.path.join(tmp, "split_sd"), StreamData(
         names, seeds.elements, inside, lines), meta=meta)
     t3 = time.perf_counter()
-    write_tecplot_lines(os.path.join(tmp, "split_lines.dat"), names, lines)
+    tec = os.path.join(tmp, "split_lines.dat")
+    write_tecplot_lines(tec, names, lines)
     t4 = time.perf_counter()
+    ref = tecplot_python(names, lines)
+    t5 = time.perf_counter()
+    if not np.isfinite(lines).all():
+        raise AssertionError("production lines hold non-finite values")
+    with open(tec, "rb") as f:
+        if f.read() != ref:
+            raise AssertionError("native Tecplot text differs from the "
+                                 "Python formatting")
     kw = dict(trace_field="temp", sample_names=["temp", "density"])
     prof = {
         "float64": profiled_trace(lambda: trace_streamlines(
@@ -846,7 +1035,8 @@ def stream_layer_split(plt: str, mef: str, dev, tmp: str) -> dict:
             ds, seeds.positions(), 51, 0.5, march_dtype="bfloat16", **kw))}
     return {"read_s": t1 - t0, "trace_s": t2 - t1,
             "stream_data_write_s": t3 - t2, "tecplot_write_s": t4 - t3,
-            "profiled_trace": prof}
+            "tecplot_python_format_s": t5 - t4, "tecplot_bytes": len(ref),
+            "tecplot_byte_equal": True, "profiled_trace": prof}
 
 
 def phase_stream_prod(tmp: str, dev) -> None:
@@ -1705,8 +1895,17 @@ def compare_text_files(a: str, b: str, rtol: float) -> float:
     (x, wa), (y, wb) = read(a), read(b)
     if wa != wb or x.shape != y.shape:
         raise AssertionError(f"{a} and {b} differ in layout")
-    scale = float(np.abs(y).max()) or 1.0
-    err = float(np.abs(x - y).max()) / scale
+    # NaN equals NaN, whatever its sign: the card's NaN is positive, the
+    # host's 0/0 negative, and glibc prints the sign
+    if not np.array_equal(np.isnan(x), np.isnan(y)):
+        raise AssertionError(f"{a} and {b} differ in their NaNs")
+    x, y = x[~np.isnan(x)], y[~np.isnan(y)]
+    if not np.array_equal(np.isinf(x), np.isinf(y)) or \
+            not np.array_equal(x[np.isinf(x)], y[np.isinf(y)]):
+        raise AssertionError(f"{a} and {b} differ in their infinities")
+    x, y = x[np.isfinite(x)], y[np.isfinite(y)]
+    scale = float(np.abs(y).max(initial=0.0)) or 1.0
+    err = float(np.abs(x - y).max(initial=0.0)) / scale
     if not err <= rtol:
         raise AssertionError(f"{a} vs {b}: {err} of the largest value")
     return err
@@ -1841,6 +2040,68 @@ def phase_stats(tmp: str, dev):
                       for k in ("binned", "joint")}
 
 
+# -- phase 11 -------------------------------------------------------------------
+def loader_check(plt: str) -> dict:
+    """Every level of ``plt`` read by the native loader and box by box:
+    bitwise equal; both timed (host clock, the files in the page cache)."""
+    r = PlotfileReader(plt)
+    out = {"levels": r.meta.n_levels, "comps": r.meta.ncomp, "boxes": 0,
+           "cells": 0, "native_s": 0.0, "per_box_s": 0.0}
+    for lev in range(r.meta.n_levels):
+        t0 = time.perf_counter()
+        got = r.read_level(lev)
+        t1 = time.perf_counter()
+        plain = [r.read_box(lev, i) for i in range(len(got))]
+        t2 = time.perf_counter()
+        for i, (a, b) in enumerate(zip(got, plain)):
+            if not np.array_equal(a.view(np.uint64), b.view(np.uint64)):
+                raise AssertionError(f"{plt} level {lev} box {i}: native "
+                                     "loader differs from read_box")
+        out["native_s"] += t1 - t0
+        out["per_box_s"] += t2 - t1
+        out["boxes"] += len(got)
+        out["cells"] += sum(a[0].size for a in got)
+    return out
+
+
+def nan_casts(dev) -> dict:
+    """The device writer casts with the card's own float32 <-> float64
+    conversions: they must keep a quiet NaN's sign and payload as the
+    host's conversion does, or the FAB bytes differ."""
+    out = {}
+    for name, bits, dst in (
+            ("float32_to_float64", np.array(
+                [0x7FC00000, 0xFFC00000, 0x7FFFFFFF, 0x7FC12345], np.uint32),
+             np.float64),
+            ("float64_to_float32", np.array(
+                [0x7FF8000000000000, 0xFFF8000000000000, 0x7FFFFFFFFFFFFFFF,
+                 0xFFF8123456789ABC], np.uint64), np.float32)):
+        x = bits.view(np.float32 if bits.dtype == np.uint32 else np.float64)
+        ubits = np.uint64 if dst == np.float64 else np.uint32
+        card = torch.from_numpy(x).to(dev).to(
+            torch.float64 if dst == np.float64 else torch.float32)
+        card = card.cpu().numpy().view(ubits)
+        host = x.astype(dst).view(ubits)
+        if not np.array_equal(card, host):
+            raise AssertionError(f"{name}: the card's NaN bits "
+                                 f"{[hex(v) for v in card]} differ from the "
+                                 f"host's {[hex(v) for v in host]}")
+        out[name] = [f"{a:#x} -> {b:#x}" for a, b in zip(bits, card)]
+    return out
+
+
+def phase_host_io(tmp: str, dev) -> None:
+    """The native loader at production size against read_box; the card's
+    NaN conversions against the host's."""
+    out = {name: loader_check(os.path.join(tmp, plt)) for name, plt in (
+        ("grad_curvature", "plt_prod"), ("stream", "plt_prod_stream"),
+        ("stats", "plt_stats_production"))}
+    emit({"phase": "host_io", "tolerance": "bitwise",
+          "loader_threads": native.loader_threads(),
+          "cpus": len(os.sched_getaffinity(0)), "plotfiles": out,
+          "nan_casts": nan_casts(dev)})
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -1863,6 +2124,7 @@ def main() -> int:
         phase_main_path(tmp, dev)
         phase_smooth(tmp, dev)
         stats_launches, stats_err = phase_stats(tmp, dev)
+        phase_host_io(tmp, dev)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -21,8 +21,9 @@ import torch
 
 from .box import Box, BoxArray
 from .geometry import Geometry
+from ..io.fab_pack import PackedLevel, fetch_level, level_records, pack_level
 from .hierarchy import (AmrMeta, _periodic_shifts, load_plotfile_fabs,
-                        write_level_fabs)
+                        output_layout, write_level_records)
 
 
 @dataclasses.dataclass
@@ -197,16 +198,39 @@ class DenseAmrState:
 
     # -- back to a plotfile ---------------------------------------------------
     def level_fabs(self) -> List[List[np.ndarray]]:
-        """Per-level lists of each box's ``[ncomp, *box.shape]`` window;
-        each level is copied to the host once."""
+        """Per-level lists of each box's C-contiguous ``[ncomp,
+        *box.shape]`` copy, as the JAX package's packed dense writer gives
+        them; each level is copied to the host once.  With
+        ``write_level_fabs``, the plain host version of ``to_plotfile``."""
         out = []
         for lev in range(self.meta.n_levels):
             host = self.data[lev].cpu().numpy()
             bbox = self.lmeta[lev].bbox
-            out.append([host[(slice(None),) + _box_slices(b, bbox)]
-                        for b in self.meta.bas[lev]])
+            out.append([np.ascontiguousarray(
+                host[(slice(None),) + _box_slices(b, bbox)])
+                for b in self.meta.bas[lev]])
         return out
 
-    def to_plotfile(self, path: str, names=None) -> None:
-        write_level_fabs(self.meta, names or self.names, self.level_fabs(),
-                         path)
+    def packed_level(self, lev: int, dtype=np.float64) -> PackedLevel:
+        """Level ``lev``'s FAB records of ``dtype`` and their min/max
+        tables, packed in file order on the state's device."""
+        bbox = self.lmeta[lev].bbox
+        return pack_level(self.data[lev], [_box_slices(b, bbox)
+                                           for b in self.meta.bas[lev]],
+                          dtype)
+
+    def to_plotfile(self, path: str, names=None, dtype=np.float64) -> None:
+        """Write the state as a plotfile of ``dtype`` FABs.  Each level is
+        sliced, permuted, cast and reduced to its min/max tables on the
+        state's device and copied to the host in one copy
+        (``io/fab_pack.py``); the files equal
+        ``write_level_fabs(meta, names, self.level_fabs(), path, dtype)``
+        byte for byte."""
+        _, bas = output_layout(self.meta)
+        records = []
+        for lev in range(self.meta.n_levels):
+            packed = self.packed_level(lev, dtype)
+            records.append(level_records(packed, fetch_level(packed),
+                                         [b.shape for b in bas[lev]]))
+        write_level_records(self.meta, names or self.names, records, path,
+                            dtype)

@@ -16,7 +16,8 @@ import numpy as np
 
 from .box import Box, BoxArray
 from .geometry import Geometry
-from ..io.plotfile import PlotfileReader, promote_2d, write_plotfile
+from ..io.plotfile import (PlotfileReader, promote_2d, write_plotfile,
+                           write_plotfile_records)
 
 
 @dataclasses.dataclass
@@ -68,21 +69,39 @@ def load_plotfile_fabs(path: str, names: Optional[Sequence[str]] = None,
     return meta, names, fabs
 
 
-def write_level_fabs(meta: AmrMeta, names, level_fabs, path: str,
-                     dtype=np.float64) -> None:
-    """Write per-level fab lists as a plotfile (handles the DIM=2
-    demotion)."""
+def output_layout(meta: AmrMeta):
+    """(geoms, box arrays) as a plotfile of ``meta`` records them: a DIM=2
+    source is demoted back from its nz=1 promotion."""
     geoms, bas = meta.geoms, meta.bas
-    if meta.ndim2:  # demote back to a DIM=2 plotfile
+    if meta.ndim2:
         geoms = [Geometry(Box(g.domain.lo[:2], g.domain.hi[:2]),
                           g.prob_lo[:2], g.prob_hi[:2],
                           g.is_periodic[:2], g.coord_sys) for g in geoms]
         bas = [BoxArray([Box(b.lo[:2], b.hi[:2]) for b in ba])
                for ba in meta.bas]
+    return geoms, bas
+
+
+def write_level_fabs(meta: AmrMeta, names, level_fabs, path: str,
+                     dtype=np.float64) -> None:
+    """Write per-level fab lists as a plotfile (handles the DIM=2
+    demotion)."""
+    geoms, bas = output_layout(meta)
+    if meta.ndim2:
         level_fabs = [[f[..., 0] for f in fabs] for fabs in level_fabs]
     write_plotfile(path, names, meta.time, geoms, meta.ref_ratio,
                    bas, level_fabs,
                    level_steps=meta.level_steps, dtype=dtype)
+
+
+def write_level_records(meta: AmrMeta, names, level_records, path: str,
+                        dtype=np.float64) -> None:
+    """Write per-level ``(payloads, mins, maxs)`` FAB records (see
+    ``io/plotfile.py`` ``write_plotfile_records``) as a plotfile."""
+    geoms, bas = output_layout(meta)
+    write_plotfile_records(path, names, meta.time, geoms, meta.ref_ratio,
+                           bas, level_records, level_steps=meta.level_steps,
+                           dtype=dtype)
 
 
 def _periodic_shifts(per: Sequence[bool], dom: Box):

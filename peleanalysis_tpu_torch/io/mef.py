@@ -10,8 +10,7 @@ On-disk layout (data.rst "MEF"; writer at Src/isosurface.cpp:2108-2130):
   raw int32 [nElts, nodesPerElt] connectivity, 1-based.
 
 A copy of ``peleanalysis_tpu/io/mef.py``; the Tecplot writer formats its
-text with ``np.savetxt`` (the JAX package's native formatter writes the same
-text).
+text with the port's copy of the JAX package's native formatter.
 """
 from __future__ import annotations
 
@@ -20,6 +19,7 @@ from typing import List
 
 import numpy as np
 
+from ..native import savetxt_fast
 from .fab import read_raw_node_fab, write_raw_node_fab
 
 
@@ -110,8 +110,8 @@ def write_mef_tecplot(path: str, mef: MEF) -> None:
             f'ZONE T="{mef.label}" N={mef.n_nodes} E={mef.n_elts} '
             f"F=FEPOINT ET={zone_type}\n"
         )
-        np.savetxt(f, mef.nodes, fmt="%.12g")
-        np.savetxt(f, mef.elements + 1, fmt="%d")
+        savetxt_fast(f, mef.nodes, fmt="%.12g")
+        savetxt_fast(f, mef.elements + 1, fmt="%d")
 
 
 def _zone_fields(zone: str) -> dict:

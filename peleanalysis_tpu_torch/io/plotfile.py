@@ -4,8 +4,12 @@ Replaces the reference's AmrData / PlotFileData / VisMF stack
 (PeleAnalysis Src/grad.cpp:64-71, Src/isosurface.cpp:1307; format per
 Docs/source/data.rst "Plotfiles" and the AMReX IO docs).  The reader is
 demand-paged at (level, component, box) granularity like ``AmrData::FillVar``
-so huge plotfiles need not be resident; the writer emits the standard
-``HyperCLaw-V1.1`` layout readable by amrvis / yt / the reference tools.
+so huge plotfiles need not be resident; a level's boxes are read by the
+native parallel loader.  The writer emits the standard ``HyperCLaw-V1.1``
+layout readable by amrvis / yt / the reference tools, from per-box numpy
+arrays (``write_plotfile``) or from FAB records already packed in file
+order with their min/max tables (``write_plotfile_records``, the device
+writer's tail, ``amr/dense.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import numpy as np
 
 from ..amr.box import Box, BoxArray, parse_box
 from ..amr.geometry import Geometry
-from .fab import read_fab_header, write_fab
+from .fab import fab_header_str, read_fab_header, write_fab
 
 _PLT_VERSION = "HyperCLaw-V1.1"
 
@@ -106,12 +110,60 @@ class PlotfileReader:
                 out[oi] = raw.reshape(box.shape[::-1]).T
         return out
 
+    def _fab_headers(self, lev: int) -> List[Tuple[Box, int, np.dtype]]:
+        """Each FAB record's header (box, ncomp, dtype), in box order."""
+        idx = self._index(lev)
+        by_file: dict = {}
+        for i, (fname, offset) in enumerate(idx["fabs"]):
+            by_file.setdefault(fname, []).append((i, offset))
+        heads: dict = {}
+        for fname, recs in by_file.items():     # each file opened once
+            with open(os.path.join(idx["dir"], fname), "rb") as f:
+                for i, offset in recs:
+                    f.seek(offset)
+                    heads[i] = read_fab_header(f)
+        return [heads[i] for i in range(len(idx["fabs"]))]
+
     def read_level(self, lev: int,
                    comps: Optional[Sequence[int]] = None) -> List[np.ndarray]:
-        """All boxes of a level, read box by box (a native parallel VisMF
-        loader is ROADMAP work)."""
-        nbox = len(self._index(lev)["boxes"])
-        return [self.read_box(lev, i, comps) for i in range(nbox)]
+        """All boxes of a level as float64 ``[ncomp_sel, nx, ny(, nz)]``
+        arrays, read by the native parallel FAB loader
+        (``native/vismf_io.cpp``).
+
+        Three kinds of level take the per-box :meth:`read_box` instead:
+        grown FABs (``ngrow > 0``), big-endian FABs (the loader reads
+        little-endian floats), and a FAB whose header box differs in shape
+        from the level's box (``read_box`` raises ``ValueError`` for it).
+        A failed build or a record the loader cannot read raises."""
+        idx = self._index(lev)
+        boxes = idx["boxes"]
+        nbox = len(boxes)
+        if nbox == 0:
+            return []
+        heads = self._fab_headers(lev) if idx["ngrow"] == 0 else None
+        if (heads is None
+                or any(dt.byteorder == ">" for _, _, dt in heads)
+                or any(hb.shape != b.shape for (hb, _, _), b in zip(heads,
+                                                                    boxes))):
+            return [self.read_box(lev, i, comps) for i in range(nbox)]
+        from ..native import load_fabs
+        sel = list(range(heads[0][1])) if comps is None else list(comps)
+        for i, (_, ncomp, dt) in enumerate(heads):
+            if any(not 0 <= c < ncomp for c in sel):
+                raise ValueError(f"components {sel} out of range for the "
+                                 f"{ncomp} of lev {lev} box {i}")
+            if dt != heads[0][2]:
+                raise ValueError(f"lev {lev} box {i}: FAB real format {dt} "
+                                 f"differs from box 0's {heads[0][2]}")
+        # DIM=2 boxes are padded with nz=1 for the loader's ABI
+        dims = np.ones((nbox, 3), np.int32)
+        for i, b in enumerate(boxes):
+            dims[i, : len(b.shape)] = b.shape
+        dests = [np.empty((len(sel),) + b.shape, np.float64) for b in boxes]
+        load_fabs([os.path.join(idx["dir"], f) for f, _ in idx["fabs"]],
+                  [off for _, off in idx["fabs"]], dims, sel,
+                  heads[0][2].itemsize, dests)
+        return dests
 
     def read_level_names(self, lev: int, names: Sequence[str]) -> List[np.ndarray]:
         return self.read_level(lev, [self.var_index(n) for n in names])
@@ -226,6 +278,51 @@ def write_plotfile(
 ) -> None:
     """Write a standard multi-level plotfile (WriteMultiLevelPlotfile analog,
     reference: Src/grad.cpp:256)."""
+    write_plotfile_header(path, var_names, time, geoms, ref_ratio,
+                          box_arrays, level_steps)
+    for lev in range(len(box_arrays)):
+        _write_vismf(os.path.join(path, f"Level_{lev}"), "Cell",
+                     box_arrays[lev], level_data[lev], dtype, max_fabs_per_file)
+
+
+def write_plotfile_records(
+    path: str,
+    var_names: Sequence[str],
+    time: float,
+    geoms: Sequence[Geometry],
+    ref_ratio: Sequence[int],
+    box_arrays: Sequence[BoxArray],
+    level_records: Sequence[Tuple[Sequence[np.ndarray], np.ndarray,
+                                  np.ndarray]],
+    level_steps: Optional[Sequence[int]] = None,
+    dtype=np.float64,
+    max_fabs_per_file: int = 64,
+) -> None:
+    """``write_plotfile`` from FAB payloads already in file order:
+    ``level_records[lev] = (payloads, mins, maxs)``, where payloads[i] is
+    box i's contiguous ``[comp, k, j, i]`` array of ``dtype`` and mins/maxs
+    are ``[nbox, ncomp]`` float64 tables of those stored values.  The files
+    are byte-identical to ``write_plotfile``'s for the same values."""
+    write_plotfile_header(path, var_names, time, geoms, ref_ratio,
+                          box_arrays, level_steps)
+    ncomp = len(var_names)
+    for lev, (payloads, mins, maxs) in enumerate(level_records):
+        ba = box_arrays[lev]
+        dirname = os.path.join(path, f"Level_{lev}")
+
+        def write_record(f, i, ba=ba, payloads=payloads):
+            f.write(fab_header_str(ba[i], ncomp, dtype))
+            f.write(payloads[i])
+        entries = _write_fab_files(dirname, "Cell", len(ba), write_record,
+                                   max_fabs_per_file)
+        _write_vismf_h(dirname, "Cell", ba, ncomp, entries, mins, maxs)
+
+
+def write_plotfile_header(path: str, var_names: Sequence[str], time: float,
+                          geoms: Sequence[Geometry], ref_ratio: Sequence[int],
+                          box_arrays: Sequence[BoxArray],
+                          level_steps: Optional[Sequence[int]] = None) -> None:
+    """The plotfile's top ``Header`` (creates ``path``)."""
     ndim = geoms[0].ndim
     n_lev = len(box_arrays)
     ncomp = len(var_names)
@@ -263,28 +360,15 @@ def write_plotfile(
                     f.write(f"{glo:.17g} {ghi:.17g}\n")
             f.write(f"Level_{lev}/Cell\n")
 
-    for lev in range(n_lev):
-        _write_vismf(os.path.join(path, f"Level_{lev}"), "Cell",
-                     box_arrays[lev], level_data[lev], dtype, max_fabs_per_file)
-
 
 def _write_vismf(dirname: str, base: str, ba: BoxArray,
                  fab_data: Sequence[np.ndarray], dtype, max_fabs_per_file: int) -> None:
-    os.makedirs(dirname, exist_ok=True)
     ncomp = fab_data[0].shape[0]
     nfab = len(ba)
-    entries: List[Tuple[str, int]] = []
-    ifile = 0
-    i = 0
-    while i < nfab:
-        fname = f"{base}_D_{ifile:05d}"
-        with open(os.path.join(dirname, fname), "wb") as f:
-            for _ in range(min(max_fabs_per_file, nfab - i)):
-                entries.append((fname, f.tell()))
-                write_fab(f, ba[i], fab_data[i], dtype=dtype)
-                i += 1
-        ifile += 1
-
+    entries = _write_fab_files(
+        dirname, base, nfab,
+        lambda f, i: write_fab(f, ba[i], fab_data[i], dtype=dtype),
+        max_fabs_per_file)
     # range tables must describe the STORED values: cast to the output
     # dtype first (an f32 write rounds values past the f64
     # min/max the _H declared)
@@ -293,6 +377,32 @@ def _write_vismf(dirname: str, base: str, ba: BoxArray,
                      for i in range(nfab)])
     maxs = np.array([[float(cast[i][c].max()) for c in range(ncomp)]
                      for i in range(nfab)])
+    _write_vismf_h(dirname, base, ba, ncomp, entries, mins, maxs)
+
+
+def _write_fab_files(dirname: str, base: str, nfab: int, write_record,
+                     max_fabs_per_file: int) -> List[Tuple[str, int]]:
+    """``write_record(f, i)`` for each box in turn, ``max_fabs_per_file``
+    records a ``<base>_D_<n>`` file; returns each record's (file, offset)."""
+    os.makedirs(dirname, exist_ok=True)
+    entries: List[Tuple[str, int]] = []
+    ifile = 0
+    i = 0
+    while i < nfab:
+        fname = f"{base}_D_{ifile:05d}"
+        with open(os.path.join(dirname, fname), "wb") as f:
+            for _ in range(min(max_fabs_per_file, nfab - i)):
+                entries.append((fname, f.tell()))
+                write_record(f, i)
+                i += 1
+        ifile += 1
+    return entries
+
+
+def _write_vismf_h(dirname: str, base: str, ba: BoxArray, ncomp: int,
+                   entries: Sequence[Tuple[str, int]], mins: np.ndarray,
+                   maxs: np.ndarray) -> None:
+    nfab = len(ba)
     with open(os.path.join(dirname, base + "_H"), "w") as f:
         f.write("1\n1\n")
         f.write(f"{ncomp}\n")

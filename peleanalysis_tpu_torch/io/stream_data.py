@@ -23,6 +23,7 @@ from typing import List
 import numpy as np
 
 from ..amr.box import Box, BoxArray
+from ..native import savetxt_fast
 from .fab import read_fab
 from .plotfile import _parse_vismf_header, _write_vismf
 
@@ -150,7 +151,7 @@ def write_stream_data(path: str, sd: StreamData, meta=None,
         f.write(f"{len(sd.elements)}\n{npe}\n")
         if len(sd.elements):
             # one element per line (readers are token-based)
-            np.savetxt(f, np.asarray(sd.elements, np.int64) + 1, fmt="%d")
+            savetxt_fast(f, np.asarray(sd.elements, np.int64) + 1, fmt="%d")
         f.write(" \n")
         for lev in range(sd.n_levels):
             nz = [(j, ids) for j, ids in enumerate(sd.inside_nodes[lev])

@@ -20,6 +20,7 @@ from ..amr.hierarchy import load_plotfile_fabs
 from ..io.mef import MEF, read_mef, write_mef
 from ..io.plotfile import PlotfileReader
 from ..io.stream_data import StreamData, compute_inside_nodes, write_stream_data
+from ..native import tecplot_zones
 from ..parmparse import ParmParse
 from ..stream import surface as surf
 from ..stream.trace import seed_rake, trace_streamlines
@@ -45,15 +46,11 @@ def get_seeds(pp: ParmParse):
 
 def write_tecplot_lines(path: str, names, lines: np.ndarray) -> None:
     """Per-line Tecplot zones (dump_ml_streamline_data analog,
-    stream.cpp:2227-2302): the JAX package's ``%.9g`` text, one ``%``
-    format per line, byte-identical to its numpy ``np.char`` path."""
-    nl, st, nc = lines.shape
-    zone = (" ".join(["%.9g"] * nc) + "\n") * st
+    stream.cpp:2227-2302), formatted in one native snprintf pass
+    (``native/fmt.cpp``): the JAX tool's ``%.9g`` text byte for byte."""
     with open(path, "wb") as f:
         f.write(("VARIABLES = " + " ".join(names) + "\n").encode())
-        for i in range(nl):
-            f.write(f'ZONE T="line{i}" I={st} DATAPACKING=POINT\n'.encode())
-            f.write((zone % tuple(lines[i].ravel().tolist())).encode())
+        f.write(tecplot_zones(np.asarray(lines, np.float64)))
 
 
 def main(args: dict) -> None:

@@ -127,3 +127,97 @@ def test_2d_plotfile_promoted_and_demoted(tmp_path):
     DenseAmrState.from_level_fabs(meta, names, fabs, "cpu",
                                   torch.float64).to_plotfile(out)
     _same_plotfile(PlotfileReader(out), JaxReader(src))
+
+
+# -- the device writer's code path, run on CPU tensors ---------------------------
+def _tree(root):
+    out = {}
+    for d, _, fs in os.walk(root):
+        for f in fs:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def _inject_hazards(ds):
+    """Box windows whose min or max is a zero of one or both signs, NaNs
+    of both signs, a box of -0.0 only, in the state's own dtype."""
+    from peleanalysis_tpu_torch.amr.dense import _box_slices
+    rng = np.random.default_rng(11)
+    nan = torch.tensor(float("nan"), dtype=ds.dtype)
+    windows = [(lev, (slice(None),) + _box_slices(b, ds.lmeta[lev].bbox))
+               for lev in range(ds.meta.n_levels) for b in ds.meta.bas[lev]]
+    assert len(windows) >= 7
+
+    def signed_zeros(shape, p_neg):
+        neg = torch.from_numpy(rng.random(shape) < p_neg)
+        return torch.where(neg, -0.0, 0.0).to(ds.dtype)
+
+    def fill(k, comp, values):
+        lev, w = windows[k]
+        ds.data[lev][w][comp] = values(ds.data[lev][w][comp].shape)
+    mag = lambda s: torch.from_numpy(rng.uniform(0.5, 2.0, s)).to(ds.dtype)
+    # zeros of both signs only: min and max both settled by numpy
+    fill(0, 0, lambda s: signed_zeros(s, 0.5))
+    # values >= 0 with zeros of both signs: the min settled by numpy
+    fill(1, 1, lambda s: torch.where(signed_zeros(s, 0.0) == 0, mag(s), 0)
+         * (torch.from_numpy(rng.random(s)) < 0.5) + signed_zeros(s, 0.5))
+    # values <= 0 with +0.0 only, then with -0.0 only, then both
+    fill(2, 2, lambda s: -mag(s) * (torch.from_numpy(rng.random(s)) < 0.5))
+    fill(3, 0, lambda s: torch.minimum(-mag(s) * (torch.from_numpy(
+        rng.random(s)) < 0.5), signed_zeros(s, 1.0)))
+    fill(4, 1, lambda s: -mag(s) * (torch.from_numpy(rng.random(s)) < 0.5)
+         + signed_zeros(s, 0.5))
+    # -0.0 everywhere
+    fill(5, 2, lambda s: signed_zeros(s, 1.0))
+    # NaN of both signs among finite values
+    def with_nans(s):
+        v = mag(s)
+        v.view(-1)[:3] = torch.stack([nan, -nan, nan])
+        return v
+    fill(6, 0, with_nans)
+
+
+@pytest.mark.parametrize("ndim, state_dtype, out_dtype", [
+    (3, torch.float64, np.float64), (3, torch.float32, np.float64),
+    (3, torch.float64, np.float32), (3, torch.float32, np.float32),
+    (2, torch.float32, np.float64)],
+    ids=["f64-f64", "f32-f64", "f64-f32", "f32-f32", "2d-f32-f64"])
+def test_device_writer_matches_jax(tmp_path, monkeypatch, ndim, state_dtype,
+                                   out_dtype):
+    """to_plotfile packs, casts and reduces each level in torch (here on
+    CPU tensors, on the card in the tools) and writes the bytes the JAX
+    package's write_plotfile writes from the same boxes, given as the
+    C-contiguous arrays of its packed dense writer: ±0 ties, NaN cells
+    and float32 output included."""
+    from peleanalysis_tpu.io.plotfile import write_plotfile as jax_write
+    from peleanalysis_tpu_torch.amr.hierarchy import (output_layout,
+                                                      write_level_fabs)
+    from peleanalysis_tpu_torch.io import fab_pack
+    src = str(tmp_path / "plt")
+    write_synthetic_plotfile(src, n_cell=16, n_levels=2, max_grid_size=8,
+                             ndim=ndim)
+    ds = DenseAmrState.from_plotfile(src, "cpu", dtype=state_dtype)
+    _inject_hazards(ds)
+    settled = []
+    real = fab_pack._c_order
+    monkeypatch.setattr(fab_pack, "_c_order",
+                        lambda *a: settled.append(a[2]) or real(*a))
+    ds.to_plotfile(str(tmp_path / "dev"), dtype=out_dtype)
+    assert settled          # the mixed-sign ties went through numpy
+    fabs = ds.level_fabs()
+    write_level_fabs(ds.meta, ds.names, fabs, str(tmp_path / "host"),
+                     dtype=out_dtype)
+    geoms, bas = output_layout(ds.meta)
+    if ndim == 2:
+        fabs = [[f[..., 0] for f in lev] for lev in fabs]
+    jax_write(str(tmp_path / "jax"), ds.names, ds.meta.time, geoms,
+              ds.meta.ref_ratio, bas, fabs, level_steps=ds.meta.level_steps,
+              dtype=out_dtype)
+    dev, host, jax = (_tree(tmp_path / n) for n in ("dev", "host", "jax"))
+    assert sorted(dev) == sorted(jax) and len(dev) > 4
+    for name in dev:
+        assert dev[name] == host[name] == jax[name], name
+    tables = "".join(v.decode() for k, v in dev.items()
+                     if k.endswith("Cell_H"))
+    assert "-0," in tables and "nan" in tables

@@ -67,7 +67,8 @@ def test_every_port_module_imports_without_jax():
               "tools.stream", "tools.sample_streamlines", "geom.mc_tables",
               "geom.marching_cubes", "geom.marching_squares", "io.xdmf",
               "tools.isosurface", "ops.restrict", "ops.solve", "ops.stats",
-              "ops.stats_kernels", "tools.conditional_mean", "tools.jpdf"):
+              "ops.stats_kernels", "tools.conditional_mean", "tools.jpdf",
+              "native", "io.fab_pack"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -130,3 +131,36 @@ def test_stats_clis_run_without_jax(tmp_path):
                str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert "wrote cm.dat" in res.stdout and "jpdf done" in res.stdout
+
+
+def test_native_library_is_the_ports_own(tmp_path):
+    """The loader and the formatter run from the port's own g++ build under
+    build/peleanalysis_tpu_torch/; no library of the JAX package's
+    directory is loaded (checked on the process's memory map)."""
+    res = _run("import os, sys\n"
+               "import numpy as np\n"
+               "from peleanalysis_tpu_torch import native\n"
+               "from peleanalysis_tpu_torch.io.plotfile import "
+               "PlotfileReader\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "plt = sys.argv[1] + '/plt'\n"
+               "write_synthetic_plotfile(plt, n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "assert len(PlotfileReader(plt).read_level(1)) > 1\n"
+               "assert native.format_g_rows(np.ones((2, 2))) == "
+               "b'1 1\\n1 1\\n'\n"
+               "with open('/proc/self/maps') as f:\n"
+               "    print('\\n'.join(sorted({l.split()[-1] for l in f "
+               "if l.rstrip().endswith('.so')})))\n"
+               "print('LIB', native.get_lib()._name)\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    lib = res.stdout.split("LIB ")[-1].strip()
+    build = os.path.join(REPO, "build", "peleanalysis_tpu_torch") + os.sep
+    assert lib.startswith(build) and os.path.basename(lib).startswith(
+        "libpele_native_")
+    mapped = res.stdout.split("LIB ")[0].split()
+    assert os.path.realpath(lib) in {os.path.realpath(m) for m in mapped}
+    jax_dir = os.path.join(REPO, "peleanalysis_tpu") + os.sep
+    assert not [m for m in mapped if os.path.realpath(m).startswith(jax_dir)]

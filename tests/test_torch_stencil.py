@@ -35,10 +35,29 @@ def test_grad_mag_torch_matches_stencil(dt, with_mag):
     for d, want in enumerate((gx, gy, gz)):
         np.testing.assert_array_equal(got[d], np.asarray(want)[0])
     if with_mag:
-        # 1 ulp: the same ((gx*gx + gy*gy) + gz*gz), but PyTorch's vectorized
-        # CPU sqrt is not always correctly rounded (XLA's and the card's are)
-        np.testing.assert_array_max_ulp(
-            got[3], np.asarray(jst.magnitude(gx, gy, gz))[0], maxulp=1)
+        # the oracle: the dtype's ((gx*gx + gy*gy) + gz*gz), its square
+        # root taken in float64 (numpy's is correctly rounded) and rounded
+        # to the dtype.  1 ulp: PyTorch's vectorized CPU sqrt is not always
+        # correctly rounded (XLA's and the card's are).  The JAX side's
+        # distance is reported, not asserted: the port is held to the
+        # oracle, not to the reference's rounding.
+        g3 = got[:3]
+        oracle = np.sqrt(((g3[0] * g3[0] + g3[1] * g3[1]) + g3[2] * g3[2])
+                         .astype(np.float64)).astype(np_dtype)
+        jax_ulp = int(_ulp_distance(
+            np.asarray(jst.magnitude(gx, gy, gz))[0], oracle).max())
+        port_ulp = _ulp_distance(got[3], oracle)
+        assert port_ulp.max() <= 1, (
+            f"port magnitude {int(port_ulp.max())} ulp from the correctly "
+            f"rounded oracle at {int((port_ulp > 1).sum())} cells; the JAX "
+            f"magnitude is {jax_ulp} ulp from it")
+
+
+def _ulp_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Units in the last place between two arrays of finite non-negative
+    floats of one dtype."""
+    ity = np.int32 if a.dtype == np.float32 else np.int64
+    return np.abs(a.view(ity).astype(np.int64) - b.view(ity).astype(np.int64))
 
 
 @pytest.mark.skipif(not HAVE_PALLAS, reason="pallas unavailable")

@@ -150,6 +150,81 @@ def test_tecplot_lines_byte_equal(tmp_path):
     assert (tmp_path / "p.dat").read_bytes() == (tmp_path / "j.dat").read_bytes()
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib():
+    """The JAX package's native library, loaded in this process, so its
+    writers take their native formatter (they fall back to numpy text,
+    which prints a negative NaN as "nan", if it fails to load).  Its build
+    writes the library in place: wait out another process's build."""
+    import time
+    from peleanalysis_tpu import native as jax_native
+    deadline = time.monotonic() + 120
+    while True:
+        try:
+            return jax_native.get_lib()
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(1.0)
+
+
+def _nan_hazards(rng, shape):
+    v = rng.standard_normal(shape) * 10.0 ** rng.integers(-300, 300, shape)
+    flat = v.reshape(-1)
+    flat[:8] = [np.nan, np.copysign(np.nan, -1.0), np.inf, -np.inf, 0.0,
+                -0.0, 5e-324, -1e300]
+    return v
+
+
+@pytest.mark.parametrize("writer", ["tecplot_lines", "mef_tecplot",
+                                    "stream_data"])
+def test_text_writers_byte_equal_with_nan_signs(tmp_path, jax_native_lib,
+                                                writer):
+    """The port's text writers go through its copy of the native formatter:
+    the same bytes as the JAX package's on NaN of both signs (glibc prints
+    "-nan"), +-inf, +-0 and extremes, above the formatter's 256-line
+    threading cut-off."""
+    rng = np.random.default_rng(12)
+    if writer == "tecplot_lines":
+        from peleanalysis_tpu.tools.stream import write_tecplot_lines as jw
+        from peleanalysis_tpu_torch.tools.stream import write_tecplot_lines
+        lines = _nan_hazards(rng, (300, 5, 4))
+        write_tecplot_lines(str(tmp_path / "p"), ["X", "Y", "Z", "t"], lines)
+        jw(str(tmp_path / "j"), ["X", "Y", "Z", "t"], lines)
+    elif writer == "mef_tecplot":
+        pos, elts = icosphere(subdiv=3)
+        nodes = np.concatenate([pos, _nan_hazards(rng, (len(pos), 2))], 1)
+        names = ["X", "Y", "Z", "temp", "c"]
+        port_mef.write_mef_tecplot(str(tmp_path / "p"), port_mef.MEF(
+            "0.5", names, nodes, elts))
+        jax_mef.write_mef_tecplot(str(tmp_path / "j"), jax_mef.MEF(
+            "0.5", names, nodes, elts))
+    else:
+        geoms, bas, ratios = make_amr_hierarchy(n_cell=16, n_levels=2,
+                                                max_grid_size=8)
+        jg, jb, jr = jax_hierarchy(n_cell=16, n_levels=2, max_grid_size=8)
+        lines = _nan_hazards(rng, (400, 5, 4))
+        lines[:, 2, :3] = rng.uniform(0.05, 0.95, (400, 3))
+        elts = rng.integers(0, 400, size=(500, 3)).astype(np.int32)
+        names = ["X", "Y", "Z", "temp"]
+        meta, jmeta = AmrMeta(geoms, bas, ratios), JaxMeta(jg, jb, jr)
+        port_sd.write_stream_data(str(tmp_path / "p"), port_sd.StreamData(
+            names, elts, port_sd.compute_inside_nodes(meta, lines[:, 2, :3]),
+            lines), meta=meta)
+        jax_sd.write_stream_data(str(tmp_path / "j"), jax_sd.StreamData(
+            names, elts, jax_sd.compute_inside_nodes(jmeta, lines[:, 2, :3]),
+            lines), meta=jmeta)
+    p, j = tmp_path / "p", tmp_path / "j"
+    got = _tree_bytes(p) if p.is_dir() else {"": p.read_bytes()}
+    want = _tree_bytes(j) if j.is_dir() else {"": j.read_bytes()}
+    assert got == want
+    if writer != "stream_data":
+        text = got[""]
+        assert b"-nan" in text and text.count(b"nan") > text.count(b"-nan")
+    else:
+        assert len(got["Elements"].splitlines()) > 500
+
+
 # -- the two CLIs on one plotfile ------------------------------------------------
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
