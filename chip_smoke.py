@@ -92,6 +92,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                box by box (read_box): bitwise equal, both timed, with the
                loader's thread count; the card's float32 <-> float64
                conversions of quiet NaNs bitwise equal to the host's
+  12 sparse  - the JAX bench's sec_sparse512 case (128^3, ratio 4, 16
+               scattered 32^3 patches, temp crossing 1050 K in each) through
+               all seven tools clustered and with force_dense=1: plotfiles
+               equal, MEFs by canonical node and element sets, lines and
+               samples within 1e-12, stats files within 1e-9 with hits
+               equal; cold and warm walls and peak device memory of both
+               paths; the clustered runs' kernel launches (counts set to 0
+               just before each, read just after: the "launches_sparse" of
+               the kernel summary); one device-to-host copy a part of the
+               clustered grad (torch.profiler); the clustered grad,
+               curvature, stream, conditionalMean and jpdf run once more
+               with every kernel call followed by its plain version on the
+               same inputs (HeldAgainstPlain, the tolerances of 3, 3b, 3c):
+               cluster substates, the coarse pass, one histogram a part
+  12b scale  - 256^3 + 64 scattered 64^3 patches on a 1024^3 finest index
+               space (1.3 GB plotfile, 5 components): clustered grad,
+               curvature and isosurface, walls, peak device memory, each
+               run split into read, coarse pass and clusters, and the
+               finest union bbox force_dense=1 would allocate; grad and
+               curvature once more with every grad_mag call held against
+               grad_mag_torch (64 x 64 x 832 clusters, the 256^3 coarse
+               pass)
+The errors of 12 and 12b go into the kernel summary's max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -116,11 +139,15 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from peleanalysis_tpu_torch import cli, native
-from peleanalysis_tpu_torch.amr.dense import DenseAmrState, _box_slices
+from peleanalysis_tpu_torch.amr.cluster import (cluster_boxes,
+                                                cluster_substates,
+                                                coarse_only_state)
+from peleanalysis_tpu_torch.amr.dense import (DenseAmrState, PlotfileRecords,
+                                              _box_slices)
 from peleanalysis_tpu_torch.amr.hierarchy import (load_plotfile_fabs,
                                                   output_layout,
-                                                  write_level_fabs,
-                                                  write_level_records)
+                                                  write_level_fabs)
+from peleanalysis_tpu_torch.geom import marching_cubes as mc
 from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
 from peleanalysis_tpu_torch.io.fab import fab_header_str
 from peleanalysis_tpu_torch.io.fab_pack import fetch_level, level_records
@@ -137,9 +164,10 @@ from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
 from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
+                                            write_scattered_plotfile,
                                             write_synthetic_plotfile)
 from peleanalysis_tpu_torch.tools.conditional_mean import (
-    accumulate_conditional_mean, accumulate_stats_fused, load_dense,
+    accumulate_conditional_mean, accumulate_stats_fused, load_parts,
     write_cm_dat)
 from peleanalysis_tpu_torch.tools.curvature import compute_curvature_dense
 from peleanalysis_tpu_torch.tools.grad import compute_grad_dense
@@ -1844,7 +1872,8 @@ def stats_split(plt: str, dev, tmp: str) -> dict:
     from peleanalysis_tpu_torch.parmparse import ParmParse
     pp = ParmParse({})
     t0 = time.perf_counter()
-    ds = load_dense(plt, ["temp", "density", "const"], None, dev, pp)
+    _, [(ds, _)] = load_parts(plt, ["temp", "density", "const"], None, dev,
+                              pp, "conditionalMean")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     h, s, q, mn, mx = accumulate_conditional_mean(
@@ -1857,7 +1886,7 @@ def stats_split(plt: str, dev, tmp: str) -> dict:
                  ["density", "const"], 64, 300.0, 1801.0, h, s, q)
     t3 = time.perf_counter()
     names = ["temp", "progress", "density"]
-    ds3 = load_dense(plt, names, None, dev, pp)
+    _, [(ds3, _)] = load_parts(plt, names, None, dev, pp, "jpdf")
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     lo_hi = {"temp": (300.0, 1801.0), "progress": (-0.1, 1.1),
@@ -2102,6 +2131,467 @@ def phase_host_io(tmp: str, dev) -> None:
           "nan_casts": nan_casts(dev)})
 
 
+# -- phase 12 -------------------------------------------------------------------
+# the JAX bench's sec_sparse512 case (bench.py:796, testing.py:133): 128^3
+# level 0, ratio 4, 16 scattered 32^3 patches on a 512^3 finest index space
+SPARSE_PARITY = dict(n0=128, ratio=4, n_clusters=16, fine_box=32)
+# 16.8 M coarse + 16.8 M fine cells on a 1024^3 finest index space
+SPARSE_SCALE = dict(n0=256, ratio=4, n_clusters=64, fine_box=64)
+SPARSE_ISO = 1050.0
+SPARSE_CM = ["binComp=temp", "avgComps=density", "nBins=64", "binMin=300",
+             "binMax=1801", "writeBinMinMax=1"]
+SPARSE_JPDF = ["vars=temp density x_velocity", "nBins=64",
+               "output_gnuplot=1", "output_plotfile=0"]
+
+
+def sparse_fields():
+    """temp crosses 1050 K in every patch of the 4^3 lattice (period 1/4);
+    the velocities and density of testing.default_fields."""
+    f = default_fields()
+    return {"temp": lambda x, y, z: 300 + 750 * (
+        1 + np.cos(8 * np.pi * x) * np.cos(8 * np.pi * y)
+        * np.cos(8 * np.pi * z)),
+        "density": f["density"], "x_velocity": f["x_velocity"],
+        "y_velocity": f["y_velocity"], "z_velocity": f["z_velocity"]}
+
+
+def sparse_seeds(meta, per_box: int, n_coarse: int) -> np.ndarray:
+    """per_box seeds inside each finest box, n_coarse anywhere."""
+    rng = np.random.default_rng(11)
+    dx = np.array(meta.geoms[-1].dx)
+    pts = [rng.random((n_coarse, 3))]
+    for b in meta.bas[-1]:
+        lo, hi = np.array(b.lo) * dx + dx, (np.array(b.hi) + 1) * dx - dx
+        pts.append(lo + (hi - lo) * rng.random((per_box, 3)))
+    return np.concatenate(pts)
+
+
+def run_wall(tool: str, args) -> float:
+    t0 = time.perf_counter()
+    if cli.main([tool, *args]) != 0:
+        raise RuntimeError(f"{tool} {args} failed")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def same_plotfile(a: str, b: str) -> dict:
+    """Every FAB of two plotfiles equal, NaN equal to NaN (the CPU tests'
+    float32 tolerance between the clustered and the dense path)."""
+    ra, rb = PlotfileReader(a), PlotfileReader(b)
+    if ra.var_names != rb.var_names or ra.meta.n_levels != rb.meta.n_levels:
+        raise AssertionError(f"{a} and {b} differ in layout")
+    cells = 0
+    for lev in range(ra.meta.n_levels):
+        for fa, fb in zip(ra.read_level(lev), rb.read_level(lev)):
+            if not np.array_equal(fa, fb, equal_nan=True):
+                raise AssertionError(f"{a} and {b} differ on level {lev}: "
+                                     f"{np.nanmax(np.abs(fa - fb))}")
+            cells += fa[0].size
+    return {"cells": cells, "equal": True}
+
+
+def close_scaled(a: np.ndarray, b: np.ndarray, what: str) -> float:
+    """Within 1e-12 of each column's largest value (at least 1)."""
+    scale = np.maximum(np.abs(b).reshape(-1, b.shape[-1]).max(axis=0), 1.0)
+    err = float((np.abs(a - b) / scale).max(initial=0.0))
+    if not err <= 1e-12:
+        raise AssertionError(f"{what}: {err} of the column scale")
+    return err
+
+
+def canon(m: MEF):
+    n = np.round(m.nodes, 9)
+    order = np.lexsort(n.T[::-1])
+    rank = np.empty(len(n), np.int64)
+    rank[order] = np.arange(len(n))
+    tris = np.sort(rank[m.elements], axis=1)
+    return m.nodes[order], tris[np.lexsort(tris.T[::-1])]
+
+
+def same_surface(a: str, b: str) -> dict:
+    (na, ta), (nb, tb) = canon(read_mef(a)), canon(read_mef(b))
+    if not np.array_equal(ta, tb):
+        raise AssertionError(f"{a} and {b}: element sets differ")
+    err = close_scaled(na, nb, f"{a} nodes")
+    if not (na[:, 3] == SPARSE_ISO).all():
+        raise AssertionError(f"{a}: iso column is not {SPARSE_ISO}")
+    return {"nodes": len(na), "elements": len(ta), "max_err": err}
+
+
+def same_lines(a: str, b: str) -> dict:
+    la, lb = read_stream_data(a), read_stream_data(b)
+    if la.names != lb.names or not np.isfinite(la.lines).all():
+        raise AssertionError(f"{a} and {b}: names or non-finite lines")
+    return {"lines": la.n_lines, "max_err": close_scaled(la.lines, lb.lines,
+                                                         a)}
+
+
+def same_stats(a: str, b: str, hits_col=None) -> dict:
+    x, y = np.loadtxt(a, skiprows=2 if hits_col else 0), np.loadtxt(
+        b, skiprows=2 if hits_col else 0)
+    np.testing.assert_allclose(x, y, rtol=1e-9, atol=1e-12, err_msg=a)
+    if hits_col is not None and not np.array_equal(x[:, hits_col],
+                                                   y[:, hits_col]):
+        raise AssertionError(f"{a}: hits differ")
+    # empty bins hold +-inf min/max columns, equal in both files
+    fin = np.isfinite(y)
+    err = np.abs(x[fin] - y[fin]) / np.maximum(np.abs(y[fin]), 1e-300)
+    return {"max_rel_err": float(err.max(initial=0.0))}
+
+
+def same_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b| where neither is NaN."""
+    d = (a.double() - b.double()).abs()
+    return float(torch.where(d.isnan(), 0.0, d).max()) if d.numel() else 0.0
+
+
+class HeldAgainstPlain:
+    """Within the block, every call a tool makes of a kernel's wrapper
+    (grad_mag, march, the order key, binned_moments, joint_hist) is followed
+    by the plain version on the same inputs, and the kernel's output is held
+    to the tolerance of phases 3, 3b and 3c: gradients bitwise and the
+    magnitude within 1 ulp; march positions, alive flags and order keys
+    bitwise; stats hits and min/max equal, sums within STATS_RTOL of the
+    largest value.  The names are replaced where the tools look them up,
+    so the checks see the shapes the sparse paths give the kernels (cluster
+    substates, the coarse pass, one histogram a part).  ``seen`` keeps, per
+    kernel, the calls, their distinct input shapes and the largest error."""
+
+    def __init__(self):
+        from peleanalysis_tpu_torch.ops import stats as ops_stats
+        from peleanalysis_tpu_torch.stream import trace
+        from peleanalysis_tpu_torch.tools import curvature, grad
+        self.sites = [(m, "grad_mag", "grad_mag", gk.grad_mag_torch,
+                       self._grad) for m in (grad, curvature, trace)]
+        self.sites += [
+            (trace, "march", "stream_march", mk.march_torch, self._march),
+            (mk, "order_key", "stream_march_order_key", mk.order_key_torch,
+             self._key),
+            (ops_stats, "binned_moments", "stats_binned",
+             sk.binned_moments_torch, self._stats),
+            (ops_stats, "joint_hist", "stats_joint", sk.joint_hist_torch,
+             self._stats)]
+        self.seen = defaultdict(lambda: {"calls": 0, "shapes": set(),
+                                         "max_abs_err": 0.0})
+        self._saved = []
+
+    @staticmethod
+    def _grad(k, p, args):
+        if not same_nan(k[:3], p[:3]):
+            raise AssertionError("gradient differs from plain")
+        ulps = ulp_diff(k[3], p[3]) if k.shape[0] == 4 else 0
+        if ulps > 1:
+            raise AssertionError(f"magnitude {ulps} ulp off")
+        return abs_err(k, p), tuple(args[0].shape)
+
+    @staticmethod
+    def _march(k, p, args):
+        if not (same_nan(k[0], p[0]) and torch.equal(k[1], p[1])):
+            raise AssertionError("march differs from plain")
+        return abs_err(k[0], p[0]), (tuple(args[0].shape), args[4].shape[0])
+
+    @staticmethod
+    def _key(k, p, args):
+        if not torch.equal(k, p):
+            raise AssertionError("order key differs from plain")
+        return 0.0, (tuple(args[0]), args[3].shape[0])
+
+    @staticmethod
+    def _stats(k, p, args):
+        vals = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+        err, _ = check_stats(k, p, vals[0].dtype, "sparse part")
+        return err, tuple(vals[0].shape)
+
+    def __enter__(self):
+        for mod, attr, name, plain, check in self.sites:
+            real = getattr(mod, attr)
+            self._saved.append((mod, attr, real))
+
+            def held(*args, _real=real, _plain=plain, _check=check,
+                     _name=name, **kw):
+                k = _real(*args, **kw)
+                p = _plain(*args, **kw)
+                try:
+                    err, shape = _check(k, p, args)
+                except AssertionError as e:
+                    raise AssertionError(f"{_name}, sparse path: {e}") from e
+                s = self.seen[_name]
+                s["calls"] += 1
+                s["shapes"].add(shape)
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                return k
+            setattr(mod, attr, held)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, real in reversed(self._saved):
+            setattr(mod, attr, real)
+        self._saved = []
+        return False
+
+    def report(self) -> dict:
+        return {k: {"calls": v["calls"], "max_abs_err": v["max_abs_err"],
+                    "shapes": sorted(str(s) for s in v["shapes"])[:8],
+                    "n_shapes": len(v["shapes"])}
+                for k, v in self.seen.items()}
+
+
+def sparse_kernels_vs_plain(tool_runs) -> dict:
+    """Each (tool, args) clustered run once more under HeldAgainstPlain;
+    fails unless every kernel of counts() was held at least once."""
+    with HeldAgainstPlain() as held:
+        for tool, args in tool_runs:
+            if cli.main([tool, *args]) != 0:
+                raise RuntimeError(f"{tool} {args} failed")
+    missing = [k for k in counts() if held.seen[k]["calls"] == 0]
+    if missing:
+        raise AssertionError(f"sparse runs held no call of {missing}")
+    return held.report()
+
+
+def phase_sparse(tmp: str) -> dict:
+    """Every ported tool on the sparse parity case, clustered and with
+    force_dense=1: outputs equal, walls, peak memory, kernel launches;
+    each kernel held against its plain version at the clustered runs'
+    shapes."""
+    t0 = time.perf_counter()
+    plt = os.path.join(tmp, "plt_sparse")
+    meta = write_scattered_plotfile(plt, fields=sparse_fields(),
+                                    **SPARSE_PARITY)[0]
+    fin = meta.n_levels - 1
+    n_cl = len(cluster_boxes(meta.bas[fin]))
+    mef = os.path.join(tmp, "seeds_sparse.mef")
+    seeds = sparse_seeds(meta, 1000, 4000)
+    write_mef(mef, MEF("0", ["X", "Y", "Z"], seeds,
+                       np.zeros((0, 3), np.int32)))
+    out = lambda name, mode: os.path.join(tmp, f"sp_{name}_{mode}")  # noqa
+    runs = {
+        "grad": lambda m: ("grad", [f"infile={plt}", "gradVar=temp",
+                                    f"outfile={out('grad', m)}"]),
+        "curvature": lambda m: ("curvature", [
+            f"infile={plt}", "progressName=temp",
+            f"outfile={out('curvature', m)}"]),
+        "isosurface": lambda m: ("isosurface", [
+            f"infile={plt}", "isoCompName=temp", f"isoVal={SPARSE_ISO}",
+            "comps=density", f"outfile_base={out('isosurface', m)}"]),
+        "stream": lambda m: ("stream", [
+            f"plotfile={plt}", "progressName=temp", f"isoFile={mef}",
+            *STREAM_KEYS, "aux_comps=density",
+            f"streamFile={out('stream', m)}"]),
+        "sampleStreamlines": lambda m: ("sampleStreamlines", [
+            f"plotfile={plt}", f"pathFile={out('stream', 'clustered')}",
+            "comps=density temp",
+            f"streamSampleFile={out('sampleStreamlines', m)}"]),
+        "conditionalMean": lambda m: ("conditionalMean", [
+            f"infile={plt}", *SPARSE_CM, "dtype=float64",
+            f"outfile={out('conditionalMean', m)}"]),
+        "jpdf": lambda m: ("jpdf", [f"infile={plt}", *SPARSE_JPDF,
+                                    "dtype=float64", f"outSuffix=_{m}"]),
+    }
+    # kernel launches of each clustered run: one gradient a level in the
+    # coarse pass and one a cluster (grad), 7 (curvature: 7 the coarse
+    # pass's level, 14 a cluster's two levels); one histogram a part
+    expect = {"grad": (1 + n_cl,), "curvature": (7 + 14 * n_cl,),
+              "isosurface": (), "sampleStreamlines": (),
+              "stream": (1 + n_cl, 1 + n_cl, 1 + n_cl),
+              "conditionalMean": (0, 0, 0, 1 + n_cl),
+              "jpdf": (0, 0, 0, 0, 1 + n_cl)}
+    tools, launches = {}, {}
+    for name, args in runs.items():
+        res = {}
+        for mode, extra in (("clustered", []), ("dense", ["force_dense=1"])):
+            tool, a = args(mode)
+            if mode == "clustered":
+                # the sparse path's run: counts set to 0 just before, read
+                # just after
+                reset_counts()
+                cold = run_tool_counted(tool, [*a, *extra], expect[name])
+                launches[name] = counts()
+            else:
+                cold = run_wall(tool, [*a, *extra])
+            torch.cuda.reset_peak_memory_stats()
+            warm = run_wall(tool, [*a, *extra])
+            res[mode] = {"cold_s": cold, "warm_s": warm,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated()}
+        tools[name] = res
+    o = lambda name: (out(name, "clustered"), out(name, "dense"))  # noqa
+    parity = {
+        "grad": same_plotfile(*o("grad")),
+        "curvature": same_plotfile(*o("curvature")),
+        "isosurface": same_surface(*(p + ".mef" for p in o("isosurface"))),
+        "stream": same_lines(*o("stream")),
+        "sampleStreamlines": same_lines(*o("sampleStreamlines")),
+        "conditionalMean": same_stats(*o("conditionalMean"), hits_col=-2)}
+    for a, b in (("temp", "density"), ("temp", "x_velocity"),
+                 ("density", "x_velocity")):
+        parity[f"jpdf_{a}_{b}"] = same_stats(
+            *(os.path.join(plt + f"_{m}", f"Pdf_{a}_{b}.gpd")
+              for m in ("clustered", "dense")))
+    tool, a = runs["grad"]("clustered")
+    copies = d2h_copies(lambda: cli.main([tool, *a]))
+    if copies != fin + n_cl:
+        raise AssertionError(f"clustered grad: {copies} device-to-host "
+                             f"copies, expected {fin + n_cl}")
+    held = sparse_kernels_vs_plain(
+        [runs[name]("clustered") for name in (
+            "grad", "curvature", "stream", "conditionalMean", "jpdf")])
+    bbox = meta.bas[fin].minimal_box()
+    emit({"phase": "sparse_parity", "case": SPARSE_PARITY,
+          "clusters": n_cl, "finest_cells": meta.bas[fin].total_cells(),
+          "finest_bbox_cells": bbox.size, "seeds": len(seeds),
+          "tolerance": "plotfiles equal (NaN = NaN); MEFs by canonical "
+          "node and element sets, nodes, lines and samples within 1e-12 "
+          "of each column's scale; stats rtol 1e-9, hits equal",
+          "tools": tools, "launches": launches, "parity": parity,
+          "grad_d2h_copies": copies,
+          "kernels_vs_plain": {"tolerance": "as phases 3, 3b and 3c",
+                               "calls": held},
+          "seconds": time.perf_counter() - t0})
+    return ({k: sum(v[k] for v in launches.values()) for k in counts()},
+            {k: v["max_abs_err"] for k, v in held.items()})
+
+
+def sparse_split(plt: str, tool: str, dev) -> dict:
+    """One clustered run of grad, curvature or isosurface taken apart (host
+    clock, each step ending in a synchronize): read and coarse assembly,
+    the coarse pass (compute, then its levels packed and copied), the
+    clusters (build, compute, pack and copy, one after another) and the
+    file write, or for the isosurface the merge of the runs by node key."""
+    t0 = time.perf_counter()
+    names = ["temp"] if tool != "isosurface" else ["temp", "density"]
+    dt = torch.float64 if tool == "isosurface" else torch.float32
+    meta, names, fabs = load_plotfile_fabs(plt, names)
+    base = DenseAmrState.coarse_only(meta, names, fabs, dev, dt)
+    fin = meta.n_levels - 1
+    groups, subs = cluster_substates(base, fabs[fin])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if tool == "isosurface":
+        comps = [base.comp(n) for n in names]
+        coarse_ds = coarse_only_state(base)
+        mc._share_coarse_inputs(coarse_ds, base, comps, range(fin))
+        results = [mc.extract_isosurface_enum(
+            coarse_ds, "temp", SPARSE_ISO, ["density"], want_eids=True)]
+        t2 = t3 = time.perf_counter()
+        for sub in subs:
+            mc._share_coarse_inputs(sub, base, comps, range(fin))
+            results.append(mc.extract_isosurface_enum(
+                sub, "temp", SPARSE_ISO, ["density"], emit_levels=(fin,),
+                want_eids=True))
+            del sub
+        t4 = time.perf_counter()
+        mef = mc._merge_runs(results)
+        t5 = time.perf_counter()
+        extra = {"nodes": mef.n_nodes, "merge_s": t5 - t4,
+                 "keys": sum(len(k) for _, k in results)}
+    else:
+        if tool == "grad":
+            run = lambda ds, **kw: compute_grad_dense(  # noqa: E731
+                ds, "temp", interp="quadratic", **kw)
+            kw_fin = {"levels": (fin,)}
+        else:
+            lo, hi = 300.0, 1800.0
+            run = lambda ds, **kw: compute_curvature_dense(  # noqa: E731
+                ds, "temp", prog_min=lo, prog_max=hi, use_file_minmax=False,
+                interp="quadratic")
+            kw_fin = {}
+        coarse = run(coarse_only_state(base))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rec = PlotfileRecords(meta, coarse.names)
+        for lev in range(fin):
+            rec.add(lev, coarse.data[lev], coarse.lmeta[lev].bbox,
+                    range(len(meta.bas[lev])))
+        del coarse
+        t3 = time.perf_counter()
+        for g, sub in zip(groups, subs):
+            res = run(sub, **kw_fin)
+            rec.add(fin, res.data[fin], res.lmeta[fin].bbox, g)
+            del sub, res
+        t4 = time.perf_counter()
+        path = os.path.join(os.path.dirname(plt), f"split_sparse_{tool}")
+        rec.write(path)
+        t5 = time.perf_counter()
+        shutil.rmtree(path)
+        extra = {"write_s": t5 - t4}
+    return {"read_and_assembly_s": t1 - t0, "coarse_compute_s": t2 - t1,
+            "coarse_pack_s": t3 - t2, "clusters_s": t4 - t3,
+            "per_cluster_s": (t4 - t3) / len(groups), **extra}
+
+
+def phase_sparse_scale(tmp: str, dev) -> float:
+    """The scale case through clustered grad, curvature and isosurface:
+    walls, peak device memory, the coarse pass against the clusters, and
+    the finest union bbox that force_dense=1 would allocate (from the
+    meta; not run)."""
+    t0 = time.perf_counter()
+    plt = os.path.join(tmp, "plt_sparse_scale")
+    meta = write_scattered_plotfile(plt, fields=sparse_fields(),
+                                    **SPARSE_SCALE)[0]
+    gen_s = time.perf_counter() - t0
+    fin = meta.n_levels - 1
+    n_cl = len(cluster_boxes(meta.bas[fin]))
+    runs = {"grad": (["grad", f"infile={plt}", "gradVar=temp",
+                      f"outfile={plt}_gt"], (1 + n_cl,)),
+            "curvature": (["curvature", f"infile={plt}", "progressName=temp",
+                           f"outfile={plt}_K"], (7 + 14 * n_cl,)),
+            "isosurface": (["isosurface", f"infile={plt}",
+                            "isoCompName=temp", f"isoVal={SPARSE_ISO}",
+                            "comps=density", f"outfile_base={plt}_iso"],
+                           ())}
+    tools = {}
+    for name, ((tool, *a), exp) in runs.items():
+        cold = run_tool_counted(tool, a, exp)
+        torch.cuda.reset_peak_memory_stats()
+        warm = run_tool_counted(tool, a, exp)
+        tools[name] = {"cold_s": cold, "warm_s": warm,
+                       "max_memory_allocated":
+                           torch.cuda.max_memory_allocated(),
+                       "split": sparse_split(plt, name, dev)}
+    # the gradient kernel at the scale clusters' shapes (64 x 64 x 832
+    # columns) and the 256^3 coarse pass
+    with HeldAgainstPlain() as held:
+        for name in ("grad", "curvature"):
+            tool, *a = runs[name][0]
+            if cli.main([tool, *a]) != 0:
+                raise RuntimeError(f"{tool} failed")
+    if held.seen["grad_mag"]["calls"] != 1 + n_cl + 7 + 14 * n_cl:
+        raise AssertionError(f"scale: {held.seen['grad_mag']['calls']} "
+                             "grad_mag calls held")
+    m = read_mef(plt + "_iso.mef")
+    if not (m.n_elts > 0 and np.isfinite(m.nodes).all()):
+        raise AssertionError("scale isosurface empty or non-finite")
+    ds = DenseAmrState.from_plotfile(plt + "_gt", "cpu", names=[
+        "||gradtemp||"], dtype=torch.float64, max_level=0)
+    if not torch.isfinite(ds.data[0]).all():
+        raise AssertionError("scale grad: non-finite level 0")
+    bbox = meta.bas[fin].minimal_box()
+    coarse_cells = meta.bas[0].total_cells()
+    emit({"phase": "sparse_scale", "case": SPARSE_SCALE, "clusters": n_cl,
+          "coarse_cells": coarse_cells,
+          "finest_cells": meta.bas[fin].total_cells(),
+          "plotfile_bytes": sum(os.path.getsize(os.path.join(d, f))
+                                for d, _, fs in os.walk(plt) for f in fs),
+          "generate_and_write_s": gen_s, "tools": tools,
+          "iso_nodes": m.n_nodes, "iso_elements": m.n_elts,
+          "force_dense_avoided": {
+              "finest_bbox": list(bbox.shape), "cells": bbox.size,
+              "bytes_per_float32_component": 4 * bbox.size,
+              "bytes_per_float64_component": 8 * bbox.size,
+              "grad_float32_in_out_bytes": 4 * bbox.size * (1 + 5),
+              "isosurface_float64_input_bytes": 8 * bbox.size * (3 + 2)},
+          "coarse_level_bytes_float32": 4 * coarse_cells,
+          "kernels_vs_plain": {"tolerance": "as phase 3",
+                               "calls": held.report()},
+          "seconds": time.perf_counter() - t0})
+    return held.seen["grad_mag"]["max_abs_err"]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2125,21 +2615,33 @@ def main() -> int:
         phase_smooth(tmp, dev)
         stats_launches, stats_err = phase_stats(tmp, dev)
         phase_host_io(tmp, dev)
+        sparse, sparse_err = phase_sparse(tmp)
+        sparse_err["grad_mag"] = max(sparse_err["grad_mag"],
+                                     phase_sparse_scale(tmp, dev))
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
+    # the kernels held at the sparse paths' shapes (phases 12 and 12b)
+    kern["max_abs_err"] = max(kern["max_abs_err"], sparse_err["grad_mag"])
+    march["max_abs_err"] = max(march["max_abs_err"],
+                               sparse_err["stream_march"])
+    for k in ("binned", "joint"):
+        stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"],
+                                        sparse_err[f"stats_{k}"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{
         "name": "grad_mag", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/grad_mag.cu",
         "replaces": "peleanalysis_tpu/ops/pallas_kernels.py:36",
-        "launches": launches, **{k: kern[k] for k in (
+        "launches": launches, "launches_sparse": sparse["grad_mag"],
+        **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
         "name": "stream_march", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stream_march.cu",
         "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
         "launches": stream["launches"]["stream_march"],
+        "launches_sparse": sparse["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -2148,6 +2650,7 @@ def main() -> int:
         "source": "peleanalysis_tpu_torch/csrc/stream_march.cu",
         "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
         "launches": stream["launches"]["stream_march_order_key"],
+        "launches_sparse": sparse["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -2155,12 +2658,14 @@ def main() -> int:
         "name": "stats_binned", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
         "replaces": "peleanalysis_tpu/ops/stats.py:30",
-        "launches": stats_launches["stats_binned"], **stats_k["binned"]}, {
+        "launches": stats_launches["stats_binned"],
+        "launches_sparse": sparse["stats_binned"], **stats_k["binned"]}, {
         # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
         "name": "stats_joint", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
         "replaces": "peleanalysis_tpu/ops/stats.py:184",
-        "launches": stats_launches["stats_joint"], **stats_k["joint"]}]})
+        "launches": stats_launches["stats_joint"],
+        "launches_sparse": sparse["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

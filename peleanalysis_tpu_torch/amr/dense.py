@@ -32,16 +32,6 @@ class DenseLevelMeta:
     geom: Geometry
 
 
-def needs_clustering(ba: BoxArray, waste_factor: float = 4.0,
-                     min_cells: int = 1 << 21) -> bool:
-    """True when the union bbox wastes more than waste_factor x the valid
-    cells AND the bbox is big enough for the waste to matter (such a level
-    needs the sparse-refinement path, which is not ported yet)."""
-    bbox = ba.minimal_box()
-    return (bbox.size > waste_factor * ba.total_cells()
-            and bbox.size > min_cells)
-
-
 def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
@@ -63,6 +53,23 @@ def _level_metas(meta: AmrMeta) -> List[DenseLevelMeta]:
             for ba, g in zip(meta.bas, meta.geoms)]
 
 
+def _assemble_np(ba: BoxArray, fabs, bbox: Box, np_dtype) -> np.ndarray:
+    """Per-box ``[ncomp, *box.shape]`` arrays into one ``[ncomp,
+    *bbox.shape]`` host array of ``np_dtype`` (holes zero)."""
+    out = np.zeros((fabs[0].shape[0],) + bbox.shape, dtype=np_dtype)
+    for b, fab in zip(ba, fabs):
+        out[(slice(None),) + _box_slices(b, bbox)] = fab
+    return out
+
+
+def assemble_level(ba: BoxArray, fabs, bbox: Box, dtype: torch.dtype,
+                   device) -> torch.Tensor:
+    """One level's boxes over ``bbox``, assembled on the host in ``dtype``
+    and copied to ``device`` once."""
+    return torch.from_numpy(_assemble_np(ba, fabs, bbox,
+                                         _np_dtype(dtype))).to(device)
+
+
 class DenseAmrState:
     """Per-level dense tensors [ncomp, *bbox_shape] on ``device``."""
 
@@ -77,6 +84,9 @@ class DenseAmrState:
         self._in_level_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
         self._covered_np: List[Optional[np.ndarray]] = [None] * meta.n_levels
         self._masks: dict = {}
+        # levels whose masks, host and device, are another state's
+        # (share_masks)
+        self._mask_src: dict = {}
         # the isosurface engine's per-state inputs (geom/marching_cubes.py)
         self._iso_cache: dict = {}
         # device boundary faces of the covered regions, by (lev, d), for
@@ -91,16 +101,25 @@ class DenseAmrState:
         """Assemble per-box ``[ncomp, *box.shape]`` arrays into one dense
         array per level on the host (rounded to ``dtype`` there), then copy
         each level to ``device`` once."""
-        np_dtype = _np_dtype(dtype)
         lmeta = _level_metas(meta)
-        data = []
-        for lev in range(meta.n_levels):
-            bbox = lmeta[lev].bbox
-            ncomp = level_fabs[lev][0].shape[0]
-            out = np.zeros((ncomp,) + bbox.shape, dtype=np_dtype)
-            for b, fab in zip(meta.bas[lev], level_fabs[lev]):
-                out[(slice(None),) + _box_slices(b, bbox)] = fab
-            data.append(torch.from_numpy(out).to(device))
+        data = [assemble_level(meta.bas[lev], level_fabs[lev],
+                               lmeta[lev].bbox, dtype, device)
+                for lev in range(meta.n_levels)]
+        return cls(meta, names, data, lmeta, device)
+
+    @classmethod
+    def coarse_only(cls, meta: AmrMeta, names: Sequence[str], level_fabs,
+                    device, dtype: torch.dtype) -> "DenseAmrState":
+        """Every level but the finest assembled on ``device``;
+        ``data[finest]`` is None and its union bbox is metadata only, so
+        nothing of that size is ever allocated.  The base of the sparse
+        refinement path (amr/cluster.py): its coarse masks see the full
+        finest BoxArray."""
+        lmeta = _level_metas(meta)
+        fin = meta.n_levels - 1
+        data = [assemble_level(meta.bas[lev], level_fabs[lev],
+                               lmeta[lev].bbox, dtype, device)
+                for lev in range(fin)] + [None]
         return cls(meta, names, data, lmeta, device)
 
     @classmethod
@@ -140,6 +159,16 @@ class DenseAmrState:
     def dtype(self) -> torch.dtype:
         return self.data[0].dtype
 
+    def share_masks(self, src: "DenseAmrState", levels) -> None:
+        """Take the in-level, covered and valid masks of ``levels``, host
+        and device, from ``src``, whose levels have the same bboxes: a
+        cluster substate's coarse levels then see the GLOBAL covered masks,
+        and every substate uses the one device copy of each."""
+        for lev in levels:
+            self._in_level_np[lev] = src.in_level_mask_np(lev)
+            self._covered_np[lev] = src.covered_mask_np(lev)
+            self._mask_src[lev] = src
+
     def in_level_mask_np(self, lev: int) -> np.ndarray:
         """bool [*bbox_shape]: cell covered by this level's boxes."""
         if self._in_level_np[lev] is None:
@@ -169,6 +198,8 @@ class DenseAmrState:
         return self.in_level_mask_np(lev) & ~self.covered_mask_np(lev)
 
     def _device_mask(self, kind: str, lev: int) -> torch.Tensor:
+        if lev in self._mask_src:
+            return self._mask_src[lev]._device_mask(kind, lev)
         key = (kind, lev)
         if key not in self._masks:
             host = getattr(self, f"{kind}_mask_np")(lev)
@@ -193,6 +224,7 @@ class DenseAmrState:
         st._in_level_np = self._in_level_np
         st._covered_np = self._covered_np
         st._masks = self._masks
+        st._mask_src = self._mask_src
         st.flux_face_masks = self.flux_face_masks
         return st
 
@@ -226,11 +258,49 @@ class DenseAmrState:
         (``io/fab_pack.py``); the files equal
         ``write_level_fabs(meta, names, self.level_fabs(), path, dtype)``
         byte for byte."""
-        _, bas = output_layout(self.meta)
-        records = []
+        out = PlotfileRecords(self.meta, names or self.names, dtype)
         for lev in range(self.meta.n_levels):
-            packed = self.packed_level(lev, dtype)
-            records.append(level_records(packed, fetch_level(packed),
-                                         [b.shape for b in bas[lev]]))
-        write_level_records(self.meta, names or self.names, records, path,
-                            dtype)
+            out.add(lev, self.data[lev], self.lmeta[lev].bbox,
+                    range(len(self.meta.bas[lev])))
+        out.write(path)
+
+
+class PlotfileRecords:
+    """A plotfile of ``meta``'s boxes gathered part by part: each ``add``
+    packs some boxes of one level out of one dense tensor on its device
+    (one ``pack_level``) and copies them to pinned host memory (one copy),
+    then files each box's record at its index in the BoxArray.  ``write``
+    writes the records in file order.  The sparse refinement path adds the
+    coarse levels from the coarse pass and each cluster's finest boxes from
+    that cluster's output, so no tensor spans the finest union bbox; the
+    files equal ``write_level_fabs`` of the same per-box values byte for
+    byte, as ``to_plotfile``'s do."""
+
+    def __init__(self, meta: AmrMeta, names: Sequence[str], dtype=np.float64):
+        self.meta = meta
+        self.names = list(names)
+        self.dtype = dtype
+        self._shapes = [[b.shape for b in ba] for ba in output_layout(meta)[1]]
+        self._records = [[None] * len(ba) for ba in meta.bas]
+
+    def add(self, lev: int, data: torch.Tensor, bbox: Box, idx) -> None:
+        """Boxes ``idx`` of level ``lev`` from ``data [ncomp, *bbox.shape]``
+        (index space of ``bbox``)."""
+        idx = list(idx)
+        boxes = self.meta.bas[lev]
+        packed = pack_level(data, [_box_slices(boxes[i], bbox) for i in idx],
+                            self.dtype)
+        payloads, mins, maxs = level_records(
+            packed, fetch_level(packed), [self._shapes[lev][i] for i in idx])
+        for k, i in enumerate(idx):
+            self._records[lev][i] = (payloads[k], mins[k], maxs[k])
+
+    def write(self, path: str) -> None:
+        missing = [(lev, i) for lev, recs in enumerate(self._records)
+                   for i, r in enumerate(recs) if r is None]
+        if missing:
+            raise ValueError(f"no record for (level, box) {missing[:4]}")
+        write_level_records(self.meta, self.names, [
+            ([r[0] for r in recs], np.stack([r[1] for r in recs]),
+             np.stack([r[2] for r in recs])) for recs in self._records],
+            path, self.dtype)

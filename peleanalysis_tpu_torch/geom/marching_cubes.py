@@ -27,16 +27,22 @@ int32 result with 21-bit ids): active cells and nodes are compacted by
 ``searchsorted`` on the cumsums that number them, and nodes and elements
 come to the host in one copy each.
 
-Not ported: the ``device``, ``fused`` and ``numpy`` engines, the sparse
-path, ``want_eids``/``emit_levels`` and ``defer=`` (``DeferredSurface``).
+Sparse refinement (``extract_isosurface_sparse``) runs the engine once on
+the coarse levels and once a finest-level cluster with ``emit_levels`` and
+``want_eids``, and merges the runs by global node keys.
+
+Not ported: the ``device``, ``fused`` and ``numpy`` engines, the canonical
+frames and batched clusters of the JAX sparse path, and ``defer=``
+(``DeferredSurface``).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..amr.cluster import cluster_substates, coarse_only_state
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import _periodic_shifts
 from ..io.mef import MEF
@@ -87,30 +93,24 @@ def _cached(dstate: DenseAmrState, key, build):
     return cache[key]
 
 
-def _coord_levels(dstate: DenseAmrState) -> List[torch.Tensor]:
-    """Per-level ``[3, *bbox]`` cell-centre coordinates on the state's
+def _coord_level(dstate: DenseAmrState, lev: int) -> torch.Tensor:
+    """Level ``lev``'s ``[3, *bbox]`` cell-centre coordinates on the state's
     device: float64 on the host per axis, rounded to the state dtype, then
     broadcast."""
-    out = []
-    for lev in range(dstate.meta.n_levels):
-        geom = dstate.meta.geoms[lev]
-        bbox = dstate.lmeta[lev].bbox
-        axes = [torch.from_numpy(
-            geom.prob_lo[d] + (np.arange(bbox.lo[d], bbox.hi[d] + 1)
-                               - geom.domain.lo[d] + 0.5) * geom.dx[d])
-                .to(dstate.device, dstate.dtype) for d in range(3)]
-        out.append(torch.stack(torch.meshgrid(*axes, indexing="ij")))
-    return out
+    geom = dstate.meta.geoms[lev]
+    bbox = dstate.lmeta[lev].bbox
+    axes = [torch.from_numpy(
+        geom.prob_lo[d] + (np.arange(bbox.lo[d], bbox.hi[d] + 1)
+                           - geom.domain.lo[d] + 0.5) * geom.dx[d])
+            .to(dstate.device, dstate.dtype) for d in range(3)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"))
 
 
-def _data_levels(dstate: DenseAmrState, comps) -> List[torch.Tensor]:
-    """``[coords | selected comps]`` per level, ``[3 + nc, *bbox]``,
-    concatenated once per (state, comps)."""
-    def build():
-        coords = _coord_levels(dstate)
-        return [torch.cat([coords[lev], dstate.data[lev][list(comps)]])
-                for lev in range(dstate.meta.n_levels)]
-    return _cached(dstate, ("data", tuple(comps)), build)
+def _data_level(dstate: DenseAmrState, comps, lev: int) -> torch.Tensor:
+    """``[coords | selected comps]`` of one level, ``[3 + nc, *bbox]``,
+    concatenated once per (state, comps, level)."""
+    return _cached(dstate, ("data", tuple(comps), lev), lambda: torch.cat(
+        [_coord_level(dstate, lev), dstate.data[lev][list(comps)]]))
 
 
 def _grown_masks(dstate: DenseAmrState, lev: int):
@@ -340,16 +340,33 @@ def _stage(name: str):
     return torch.profiler.record_function("isosurface." + name)
 
 
+def _node_keys(lev: int, a: int, cA, gbox_lo) -> torch.Tensor:
+    """Global keys of nodes at grown-local lower cells cA on axis a:
+    ``lev<<59 | a<<57 | i<<38 | j<<19 | k``, i, j, k the global cell + 1 (the
+    JAX engine's ``_decode_packed`` keys)."""
+    i, j, k = (cA[d] + (gbox_lo[d] + 1) for d in range(3))
+    return (i << 38) | (j << 19) | k | ((lev << 59) | (a << 57))
+
+
 def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                             iso_val: float, extra_names: Sequence[str] = (),
-                            bc=None, label: Optional[str] = None) -> MEF:
+                            bc=None, label: Optional[str] = None,
+                            emit_levels: Optional[Sequence[int]] = None,
+                            want_eids: bool = False):
     """Isosurface of ``iso_name`` at ``iso_val`` over all levels: a MEF with
     names ``X Y Z iso_name extra...`` (nodes in float64, computed in the
     state's dtype) whose node ids and elements are the JAX enum engine's.
     The host waits on the device four times: one read of all the counts,
-    the triangle compaction and the two copies of the result."""
+    the triangle compaction and the two copies of the result.
+
+    emit_levels restricts the triangles to those levels (the sparse path's
+    cluster runs emit the finest); a level not emitted enumerates only the
+    class-B seam parents that finer levels inject.  want_eids also returns
+    each node's global key (``_node_keys``, int64 numpy) for the sparse
+    path's merge of runs."""
     meta = dstate.meta
     L = meta.n_levels
+    emit = tuple(range(L)) if emit_levels is None else tuple(emit_levels)
     names = [iso_name] + [n for n in extra_names if n != iso_name]
     if bc is None:
         bc = default_bc(3)
@@ -361,7 +378,8 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     gbox_los = [tuple(dstate.lmeta[lev].bbox.grow(1).lo) for lev in range(L)]
 
     with _stage("fill"):
-        data_levels = _data_levels(dstate, [dstate.comp(n) for n in names])
+        comps = [dstate.comp(n) for n in names]
+        data_levels = [_data_level(dstate, comps, lev) for lev in range(L)]
         masks = [dstate.in_level_mask(lev) for lev in range(L)]
         grown = fill_dense_multilevel(meta, dstate.lmeta, data_levels, masks,
                                       1, bc, "pc")
@@ -372,19 +390,29 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                 for d, sl, dv in uw:
                     grown[lev][(d,) + sl] += dv
 
-    insides, acts, cis = [], [], []
+    insides, acts, cis = {}, {}, {}
     with _stage("classify"):
-        for lev in range(L):
+        for lev in emit:
             inside = grown[lev][3] < iso_val
             ci = _classify(inside)
-            insides.append(inside)
-            cis.append(ci)
-            acts.append(_ok_mask(dstate, lev) & (ci != 0) & (ci != 255))
+            insides[lev] = inside
+            cis[lev] = ci
+            acts[lev] = _ok_mask(dstate, lev) & (ci != 0) & (ci != 255)
 
     with _stage("masks"):
         # referenced crossings; refs[lev][a] = [own, class B]
         refs = []
         for lev in range(L):
+            shape = grown[lev].shape[1:]
+            if lev not in emit:
+                # a level that emits no triangles enumerates ONLY the
+                # class-B seam parents that finer levels inject below: its
+                # own crossings would add nodes the global run does not
+                # have (JAX :695-709)
+                refs.append([[torch.zeros(
+                    [n - (d == a) for d, n in enumerate(shape)],
+                    dtype=torch.bool, device=dev), None] for a in range(3)])
+                continue
             ghost = ~inlevs[lev]
             lev_refs = []
             for a in range(3):
@@ -399,6 +427,8 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
         # class-B (ghost-ghost) seam edges become their coarse parents' nodes
         for lev in range(L - 1, 0, -1):
             for a in range(3):
+                if refs[lev][a][1] is None:
+                    continue
                 ref_b = _fold_edge_mask(refs[lev][a][1], spans[lev])
                 base = refs[lev - 1][a][0]
                 co, slc = _coarsen_edge_mask(ref_b, rr[lev], gbox_los[lev],
@@ -411,7 +441,7 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     with _stage("cumsum"):
         # node ids: exclusive cumsum over each level's referenced edges,
         # axis after axis, offset by the previous levels' node counts
-        rank_vols, node_incs, act_incs, parts = [], [], [], []
+        rank_vols, node_incs, act_incs, parts = [], [], {}, []
         offset = torch.zeros((), dtype=torch.int32, device=dev)
         for lev in range(L):
             f = torch.cat([m.reshape(-1) for m in refs[lev]]).to(torch.int32)
@@ -427,18 +457,18 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                 parts.append(inc[p - 1])      # nodes through this axis
             rank_vols.append(vols)
             node_incs.append(inc)
-            act_inc = torch.cumsum(acts[lev].reshape(-1), 0,
-                                   dtype=torch.int32)
-            act_incs.append(act_inc)
-            parts.append(act_inc[-1])
+        for lev in emit:
+            act_incs[lev] = torch.cumsum(acts[lev].reshape(-1), 0,
+                                         dtype=torch.int32)
+            parts.append(act_incs[lev][-1])
         counts = torch.stack(parts).tolist()              # the one count read
+    n_acts = dict(zip(emit, counts[3 * L:]))
 
-    node_rows, tri_nids, tri_valid = [], [], []
+    node_rows, node_keys, tri_nids, tri_valid = [], [], [], []
     tri_edges = _cached(dstate, "tri_edges",
                         lambda: torch.from_numpy(_TRI_EDGES).to(dev))
     for lev in range(L):
-        through = [0] + counts[4 * lev: 4 * lev + 3]
-        n_act = counts[4 * lev + 3]
+        through = [0] + counts[3 * lev: 3 * lev + 3]
         G = grown[lev]
         for a, m in enumerate(refs[lev]):
             with _stage("compact"):
@@ -449,6 +479,8 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                        - sum(x.numel() for x in refs[lev][:a]))
             with _stage("gather"):
                 cA = _unravel(loc, m.shape)
+                if want_eids:
+                    node_keys.append(_node_keys(lev, a, cA, gbox_los[lev]))
                 cB = [cA[d] + 1 if d == a else cA[d] for d in range(3)]
                 A = G[:, cA[0], cA[1], cA[2]]                 # [nf, n]
                 B = G[:, cB[0], cB[1], cB[2]]
@@ -459,10 +491,13 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                 row = (A + t.clamp(0.0, 1.0)[None] * (B - A)).T
                 row[:, 3] = iso_val   # the iso comp is isoVal by construction
                 node_rows.append(row)                          # [n, nf]
+        if lev not in emit:
+            continue
 
         # elements: each active cell's 12 edges -> node ids -> triangles
         with _stage("compact"):
-            k = torch.arange(1, n_act + 1, dtype=torch.int32, device=dev)
+            k = torch.arange(1, n_acts[lev] + 1, dtype=torch.int32,
+                             device=dev)
             idx = torch.searchsorted(act_incs[lev], k)
         with _stage("gather"):
             ai, aj, ak = _unravel(idx, acts[lev].shape)
@@ -491,17 +526,90 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                 nid12, 1, tri_e.clamp(min=0).reshape(-1, 15).long()
             ).reshape(-1, 5, 3))
     with _stage("compact"):
-        elements = torch.cat(tri_nids)[torch.cat(tri_valid)]   # [T, 3]
+        elements = (torch.cat(tri_nids)[torch.cat(tri_valid)] if tri_nids
+                    else torch.zeros((0, 3), dtype=torch.int32, device=dev))
 
     out_names = ["X", "Y", "Z"] + names
-    if sum(counts[4 * lev + 2] for lev in range(L)) == 0:
-        return MEF(label or "0", out_names, np.zeros((0, nf)),
-                   np.zeros((0, 3), np.int32))
+    if sum(counts[3 * lev + 2] for lev in range(L)) == 0:
+        mef = MEF(label or "0", out_names, np.zeros((0, nf)),
+                  np.zeros((0, 3), np.int32))
+        return (mef, np.zeros(0, np.int64)) if want_eids else mef
     with _stage("copy"):
         nodes = torch.cat(node_rows).cpu().numpy()
         elements = elements.cpu().numpy()
-    return MEF(label or "0", out_names, nodes.astype(np.float64),
-               elements.astype(np.int32))
+        keys = torch.cat(node_keys).cpu().numpy() if want_eids else None
+    mef = MEF(label or "0", out_names, nodes.astype(np.float64),
+              elements.astype(np.int32))
+    return (mef, keys) if want_eids else mef
+
+
+def _share_coarse_inputs(dst: DenseAmrState, base: DenseAmrState, comps,
+                         levels) -> None:
+    """Give ``dst`` the per-level inputs of ``base`` on ``levels`` (grown
+    masks, ok mask, in-level mask, coordinates + comps): the coarse levels
+    of a cluster substate and of the coarse-only state then see the GLOBAL
+    covered masks (JAX :1610-1620, :1856-1860), else coarse triangles would
+    be emitted under other clusters' fine regions; and every run uses one
+    device copy of each."""
+    for lev in levels:
+        _ok_mask(base, lev)
+        _inlev_dev(base, lev)
+        _data_level(base, comps, lev)
+        for key in (("masks", lev), ("ok", lev), ("inlev", lev),
+                    ("data", tuple(comps), lev)):
+            dst._iso_cache[key] = base._iso_cache[key]
+
+
+def extract_isosurface_sparse(base: DenseAmrState, fin_fabs, iso_name: str,
+                              iso_val: float,
+                              extra_names: Sequence[str] = (), bc=None,
+                              label: Optional[str] = None) -> MEF:
+    """Sparse refinement extraction (JAX :1753-1892): the finest level is
+    processed as dense CLUSTERS (amr/cluster.py), so device memory scales
+    with the coarse levels plus one cluster bbox instead of the finest
+    union bbox.  ``base`` is the coarse-only state
+    (``DenseAmrState.coarse_only``), ``fin_fabs`` the finest level's
+    per-box host arrays.  One coarse pass emits levels 0..fin-1
+    (fine-covered cells excluded by the full hierarchy's covered masks);
+    each cluster's run, one after another, emits only its finest
+    triangles.  Nodes are identified across runs by their global keys
+    (``_node_keys``): ``np.unique`` orders them as the JAX merge does, a
+    later run overwriting an earlier one's row for a repeated key, so the
+    elements equal JAX's."""
+    fin = base.meta.n_levels - 1
+    names = [iso_name] + [n for n in extra_names if n != iso_name]
+    comps = [base.comp(n) for n in names]
+    _, subs = cluster_substates(base, fin_fabs)
+    coarse = coarse_only_state(base)
+    _share_coarse_inputs(coarse, base, comps, range(fin))
+    results = [extract_isosurface_enum(coarse, iso_name, iso_val,
+                                       extra_names, bc, label,
+                                       want_eids=True)]
+    del coarse
+    for sub in subs:
+        _share_coarse_inputs(sub, base, comps, range(fin))
+        results.append(extract_isosurface_enum(
+            sub, iso_name, iso_val, extra_names, bc, label,
+            emit_levels=(fin,), want_eids=True))
+        del sub
+    return _merge_runs(results, label)
+
+
+def _merge_runs(results, label: Optional[str] = None) -> MEF:
+    """One MEF from ``(mef, keys)`` runs: nodes ordered by key
+    (``np.unique``), a later run's row overwriting an earlier one's for a
+    repeated key, each run's elements renumbered."""
+    uniq, inv = np.unique(np.concatenate([k for _, k in results]),
+                          return_inverse=True)
+    nodes = np.zeros((len(uniq), results[0][0].nodes.shape[1]))
+    elements, off = [], 0
+    for mef, keys in results:
+        gid = inv[off: off + len(keys)]
+        nodes[gid] = mef.nodes
+        elements.append(gid[mef.elements])
+        off += len(keys)
+    return MEF(label or "0", results[0][0].names, nodes,
+               np.concatenate(elements).astype(np.int32))
 
 
 def extract_isosurface(dstate: DenseAmrState, iso_name: str, iso_val: float,

@@ -19,7 +19,7 @@ from ..amr.dense import DenseAmrState
 from ..io.mef import MEF
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import default_bc
-from .marching_cubes import _coord_levels, _corner_keys_at, _grown_masks
+from .marching_cubes import _coord_level, _corner_keys_at, _grown_masks
 
 # corner offsets in (i,j): c0..c3 counter-clockwise
 SQ_CORNERS = np.array([(0, 0), (1, 0), (1, 1), (0, 1)], dtype=np.int64)
@@ -55,7 +55,8 @@ def extract_isolines(
     comps = [dstate.comp(n) for n in names]
     if bc is None:
         bc = default_bc(3)
-    coord_levels = _coord_levels(dstate)
+    coord_levels = [_coord_level(dstate, lev)
+                    for lev in range(dstate.meta.n_levels)]
     data_levels = [torch.cat([coord_levels[lev][:2], dstate.data[lev][comps]])
                    for lev in range(meta.n_levels)]
     masks = [dstate.in_level_mask(l) for l in range(meta.n_levels)]

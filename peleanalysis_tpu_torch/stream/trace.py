@@ -18,7 +18,10 @@ reference's per-box Fortran stack (Src/stream.cpp:888-934 + stream_nd.f90):
     packing (int16 station deltas, uint16 per-line field ranges).
 
 Paths are ``[nseed, 2*nRKh+1, 3+nfields]`` with the seed at station nRKh.
-Not ported: ``defer=`` (pipeline mode), the sparse path and march chunking.
+Sparse refinement: ``trace_streamlines_sparse`` marches each finest-level
+cluster's seeds on its own substate (amr/cluster.py) and the other seeds on
+the coarse levels.  Not ported: ``defer=`` (pipeline mode), march chunking,
+and the JAX sparse path's canonical frames and seed padding.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..amr.cluster import cluster_substates, coarse_only_state
 from ..amr.dense import DenseAmrState
 from ..ops.dense_fill import fill_dense_arrays
 from ..ops.grad_kernels import grad_mag
@@ -219,13 +223,7 @@ def trace_streamlines(
               f"{2 * n_half + 1} stations (reference nRKh=(nRKsteps-1)/2)")
     fin = meta.n_levels - 1
     h_phys = h_rk * meta.geoms[fin].dx[0]
-    seeds = np.asarray(seeds, dtype=np.float64)
-    if seeds.shape[1] == 2:  # DIM=2 plotfile: promote seeds to the z center
-        g0 = meta.geoms[0]
-        zc = 0.5 * (g0.prob_lo[2] + g0.prob_hi[2])
-        seeds = np.concatenate(
-            [seeds, np.full((len(seeds), 1), zc)], axis=1)
-    seeds = push_nodes_inside(seeds, meta.geoms[0])
+    seeds = promote_seeds(seeds, meta)
     owner = assign_seeds_to_levels(dstate, seeds)
 
     grad_mode = trace_field is not None
@@ -294,3 +292,86 @@ def trace_streamlines(
             out[sel] = payload.cpu().numpy()     # one copy per level
     return out
 
+
+def promote_seeds(seeds: np.ndarray, meta) -> np.ndarray:
+    """float64 seeds pushed inside the domain; DIM=2 seeds promoted to the
+    z centre."""
+    seeds = np.asarray(seeds, dtype=np.float64)
+    if seeds.shape[1] == 2:
+        g0 = meta.geoms[0]
+        zc = 0.5 * (g0.prob_lo[2] + g0.prob_hi[2])
+        seeds = np.concatenate(
+            [seeds, np.full((len(seeds), 1), zc)], axis=1)
+    return push_nodes_inside(seeds, meta.geoms[0])
+
+
+def finest_cluster_of(meta, groups, points: np.ndarray) -> np.ndarray:
+    """Index of the group whose finest-level boxes (of the full BoxArray)
+    hold each point, -1 for none."""
+    fin = meta.n_levels - 1
+    geom = meta.geoms[fin]
+    idx = np.floor((points - np.array(geom.prob_lo))
+                   / np.array(geom.dx)).astype(np.int64) \
+        + np.array(geom.domain.lo)
+    out = np.full(len(points), -1, np.int64)
+    boxes = meta.bas[fin]
+    for gi, g in enumerate(groups):
+        for i in g:
+            b = boxes[i]
+            out[np.all((idx >= np.array(b.lo)) & (idx <= np.array(b.hi)),
+                       axis=1)] = gi
+    return out
+
+
+def trace_streamlines_sparse(
+    base: DenseAmrState,
+    fin_fabs,
+    seeds: np.ndarray,
+    n_rk_steps: int,
+    h_rk: float,
+    trace_field: Optional[str] = None,
+    sample_names: Sequence[str] = (),
+    bc=None,
+    march_dtype: Optional[str] = None,
+    march_engine: str = "auto",
+    ngrow: Optional[int] = None,
+    fetch_compress: Optional[bool] = None,
+) -> np.ndarray:
+    """Sparse refinement trace (JAX :625-767): the finest level is processed
+    as dense CLUSTERS of a coarse-only ``base`` (``fin_fabs`` its per-box
+    host arrays), so device memory scales with the coarse levels plus one
+    cluster bbox.  Seeds are partitioned globally: a seed in a finest box
+    (of the full BoxArray) marches on its cluster's substate, any other on
+    the coarse levels, with h_rk rescaled to keep the physical step (h_rk
+    counts the state's finest dx, stream.cpp:700).  Clusters are separated
+    by the finest march's grow radius + 1, so each cluster's fill holds what
+    the union-bbox fill holds around its seeds.  Clusters without seeds are
+    not built.  Same arguments and output layout as
+    ``trace_streamlines``."""
+    meta = base.meta
+    fin = meta.n_levels - 1
+    n_half = (n_rk_steps - 1) // 2
+    h_phys = h_rk * meta.geoms[fin].dx[0]
+    ngrow_fin = (ngrow if ngrow is not None
+                 else int(np.ceil(h_phys * n_half
+                                  / min(meta.geoms[fin].dx))) + 2)
+    groups, subs = cluster_substates(base, fin_fabs, dist=ngrow_fin + 1)
+    seeds = promote_seeds(seeds, meta)
+    cluster_of = finest_cluster_of(meta, groups, seeds)
+    out = np.zeros((len(seeds), 2 * n_half + 1, 3 + len(sample_names)))
+    kw = dict(trace_field=trace_field, sample_names=sample_names, bc=bc,
+              march_dtype=march_dtype, march_engine=march_engine,
+              ngrow=ngrow, fetch_compress=fetch_compress)
+    sel = np.nonzero(cluster_of < 0)[0]
+    if len(sel):
+        coarse = coarse_only_state(base)
+        h_rk_c = h_phys / coarse.meta.geoms[fin - 1].dx[0]
+        out[sel] = trace_streamlines(coarse, seeds[sel], n_rk_steps, h_rk_c,
+                                     **kw)
+        del coarse
+    for gi in range(len(groups)):
+        sel = np.nonzero(cluster_of == gi)[0]
+        if len(sel):
+            out[sel] = trace_streamlines(subs[gi], seeds[sel], n_rk_steps,
+                                         h_rk, **kw)
+    return out

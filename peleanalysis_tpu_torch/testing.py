@@ -128,3 +128,50 @@ def write_synthetic_plotfile(
     names, data = make_level_data(geoms, bas, fields)
     write_plotfile(path, names, time, geoms, ratios, bas, data)
     return geoms, bas, ratios, names, data
+
+
+def make_scattered_state(
+    n0: int = 128,
+    ratio: int = 4,
+    n_clusters: int = 16,
+    fine_box: int = 32,
+    seed: int = 7,
+    fields: Optional[Dict[str, Callable]] = None,
+):
+    """Production-sparse case (``peleanalysis_tpu/testing.py:133``): level 0
+    ``n0``^3 in 32^3 boxes plus ``n_clusters`` scattered ``fine_box``^3
+    patches on an (n0*ratio)^3 finest index space (<1% coverage at the
+    defaults), the per-rank memory-scaling scenario the reference gets from
+    DistributionMapping ownership (Src/grad.cpp:160-163).  The patches sit
+    on a 4x4x4 coarse lattice, so they stay well separated.  Returns
+    ``(meta, names, level_fabs)`` as ``load_plotfile_fabs`` does (float64
+    per-box ``[ncomp, *box.shape]`` arrays)."""
+    from .amr.hierarchy import AmrMeta
+
+    dom0 = Box((0, 0, 0), (n0 - 1,) * 3)
+    geom0 = Geometry(dom0, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0), (False,) * 3)
+    geom1 = geom0.refine(ratio)
+    nf = n0 * ratio
+    rng = np.random.default_rng(seed)
+    cells = [(i, j, k) for i in range(4) for j in range(4) for k in range(4)]
+    rng.shuffle(cells)
+    boxes = []
+    for (i, j, k) in cells[:n_clusters]:
+        lo = (i * nf // 4 + 8, j * nf // 4 + 8, k * nf // 4 + 8)
+        lo = tuple((v // ratio) * ratio for v in lo)  # ratio-aligned
+        boxes.append(Box(lo, tuple(v + fine_box - 1 for v in lo)))
+    bas = [decompose(dom0, 32), BoxArray(boxes)]
+    if fields is None:
+        fields = {"temp": lambda x, y, z: 300 + 1500 * np.exp(
+            -((x - .5) ** 2 + (y - .5) ** 2 + (z - .5) ** 2) / 0.2 ** 2)}
+    names, data = make_level_data([geom0, geom1], bas, fields)
+    return AmrMeta([geom0, geom1], bas, [ratio]), names, data
+
+
+def write_scattered_plotfile(path: str, time: float = 0.0, **kw):
+    """``make_scattered_state(**kw)`` written as a float64 plotfile;
+    returns ``(meta, names, level_fabs)``."""
+    meta, names, data = make_scattered_state(**kw)
+    write_plotfile(path, names, time, meta.geoms, meta.ref_ratio, meta.bas,
+                   data)
+    return meta, names, data

@@ -13,7 +13,9 @@ Every level's histogram is one launch of the stats kernel on the card
 (``ops/stats_kernels.binned_moments``).  The files of a series are read one
 after another: ``prefetch=`` is accepted, and the outputs do not depend on
 it, but the read-ahead thread of the JAX package is not ported.  Sparse
-refinement is refused unless ``force_dense=1``.
+refinement (the finest union bbox wasting >4x its cells) accumulates the
+coarse levels once and the finest level cluster by cluster
+(``sparse_stats_parts``; JAX :293-315).
 """
 from __future__ import annotations
 
@@ -23,12 +25,13 @@ import numpy as np
 import torch
 
 from .. import config
+from ..amr.cluster import clustered, sparse_stats_parts
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import PlotfileReader
 from ..ops.stats import binned_stats, reconstruct_moments
 from ..parmparse import ParmParse
-from .grad import refuse_sparse, refuse_unported
+from .grad import refuse_unported
 
 
 def _comps(d: torch.Tensor, ia: Sequence[int]) -> torch.Tensor:
@@ -218,16 +221,40 @@ def _resolve(name_or_idx: str, var_names: Sequence[str]) -> str:
         return name_or_idx
 
 
-def load_dense(path: str, names: Sequence[str], finest: Optional[int],
-               device, pp: ParmParse) -> DenseAmrState:
-    """A plotfile's named components as a dense state on ``device`` in the
-    compute dtype; sparse refinement is refused unless force_dense=1."""
+def load_parts(path: str, names: Sequence[str], finest: Optional[int],
+               device, pp: ParmParse, tool: str):
+    """A plotfile's named components as dense parts on ``device`` in the
+    compute dtype: ``(meta, parts)``, parts a re-iterable of ``(state,
+    scale)``.  Dense path: one part, the whole hierarchy, scale 1.  Sparse
+    refinement (unless force_dense=1): the coarse levels with the global
+    covered mask, scaled by r**ndim (r the ratio below the finest level: its
+    weights count cells of level fin-1, conditionalMean's count the finest
+    level's), then one single-level part a finest-level cluster, scale 1,
+    each built when visited (``sparse_stats_parts``)."""
     meta, names, fabs = load_plotfile_fabs(path, names=list(dict.fromkeys(
         names)), max_level=finest)
-    if not pp.query_bool("force_dense", False):
-        refuse_sparse(meta, [meta.n_levels - 1])
-    return DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                         config.compute_dtype)
+    dt = config.compute_dtype
+    if clustered(meta, pp, [meta.n_levels - 1]):
+        print(f"{tool}: sparse refinement -> clustered path")
+        base = DenseAmrState.coarse_only(meta, names, fabs, device, dt)
+        coarse, clusters, r = sparse_stats_parts(base, fabs[-1])
+        return meta, _Parts(coarse, float(r ** (2 if meta.ndim2 else 3)),
+                            clusters)
+    return meta, [(DenseAmrState.from_level_fabs(meta, names, fabs, device,
+                                                 dt), 1.0)]
+
+
+class _Parts:
+    """The sparse parts: (coarse, scale), then (cluster, 1.0) for each
+    cluster, built anew each time they are iterated."""
+
+    def __init__(self, coarse: DenseAmrState, scale: float, clusters):
+        self._coarse, self._scale, self._clusters = coarse, scale, clusters
+
+    def __iter__(self):
+        yield self._coarse, self._scale
+        for c in self._clusters:
+            yield c, 1.0
 
 
 def main(args: dict) -> None:
@@ -235,7 +262,7 @@ def main(args: dict) -> None:
     nBins= binMin= binMax= [writeBinMinMax=0] [finestLevel=] [aja=0]
     [outSuffix=] [outfile=] [bounds=lo.. hi.. (2*DIM reals)]
     [prefetch=1 (accepted; files are read one after another)]
-    [force_dense=0] [device=cuda|cpu]"""
+    [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
     nbins = pp.query_int("nBins", 64)
@@ -282,15 +309,17 @@ def main(args: dict) -> None:
     mins = np.full((nbins, nb), np.inf)
     maxs = np.full((nbins, nb), -np.inf)
     for plt in infiles:
-        ds = load_dense(plt, [bin_name] + avg_names, finest, device, pp)
-        h, s, s2, mn, mx = accumulate_conditional_mean(
-            ds, bin_name, avg_names, nbins, bin_min, bin_max, with_minmax,
-            bounds=bounds)
-        hits += h
-        sums += s
-        sumsq += s2
-        mins = np.minimum(mins, mn)
-        maxs = np.maximum(maxs, mx)
+        _, parts = load_parts(plt, [bin_name] + avg_names, finest, device,
+                              pp, "conditionalMean")
+        for ds, scale in parts:
+            h, s, s2, mn, mx = accumulate_conditional_mean(
+                ds, bin_name, avg_names, nbins, bin_min, bin_max,
+                with_minmax, bounds=bounds)
+            hits += scale * h
+            sums += scale * s
+            sumsq += scale * s2
+            mins = np.minimum(mins, mn)
+            maxs = np.maximum(maxs, mx)
 
     out = (infiles[0] + f"/CM_{bin_name}{out_suffix}.dat" if aja
            else f"CM_{bin_name}{out_suffix}.dat")

@@ -30,15 +30,23 @@ card): G with its magnitude, then N_x, N_y, N_z and, with Gaussian
 curvature, G_x, G_y, G_z without it — 7 launches per level, 3 more with
 strain.  The smoothing solve launches no gradient kernel: its Laplacian is
 plain torch.
+
+Sparse refinement (the finest union bbox wasting >4x its cells) takes the
+clustered path (JAX ``_main_clustered``, :494-589): the progress bounds are
+scanned globally, then one coarse pass writes levels 0..fin-1 and each
+cluster's run, over every level, its finest boxes.  ``do_smooth=1`` needs
+the composite solve over the whole hierarchy and keeps the dense path.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import config
-from ..amr.dense import DenseAmrState, needs_clustering
+from ..amr.cluster import clustered
+from ..amr.dense import DenseAmrState, _np_dtype
 from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import PlotfileReader
 from ..ops.dense_fill import fill_dense_arrays, fill_dense_multilevel
@@ -47,7 +55,7 @@ from ..ops.restrict import average_down_all
 from ..ops.solve import cg_solve, cg_solve_composite
 from ..ops.stencil import laplacian
 from ..parmparse import ParmParse
-from .grad import grad_bc, refuse_sparse, refuse_unported
+from .grad import grad_bc, refuse_unported, write_clustered
 
 D = 3
 
@@ -325,8 +333,8 @@ def main(args: dict) -> None:
     [do_gaussCurv=1] [do_strain=0] [useFileMinMax=1] [getStrainTensor=0]
     [do_velnormal=0] [threshold_prog=0] [threshold=1e-4]
     [replicate_strain_bug=0] [is_per=0 0 0] [sym_dir=0 0 0]
-    [cf_interp=quadratic] [finestLevel=] [force_dense=0] [outfile=...]
-    [device=cuda|cpu]"""
+    [cf_interp=quadratic] [finestLevel=] [force_dense=0] [cluster_batch=0]
+    [outfile=...] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     progress_name = pp.query_str("progressName", "temp")
@@ -372,8 +380,9 @@ def main(args: dict) -> None:
     meta, names, fabs = load_plotfile_fabs(
         infile, names=names, max_level=pp.query_int("finestLevel", None),
         is_periodic=[bool(p) for p in is_per])
-    sparse = (not pp.query_bool("force_dense", False) and meta.n_levels > 1
-              and needs_clustering(meta.bas[-1]))
+    outfile = pp.query_str("outfile", infile + "_K")
+    kw = dict(do_strain=do_strain, do_velnormal=do_velnormal, **kwargs)
+    sparse = clustered(meta, pp, [meta.n_levels - 1])
     if sparse and do_smooth:
         # the composite solve needs the dense model (no clustered path)
         ba = meta.bas[-1]
@@ -383,16 +392,68 @@ def main(args: dict) -> None:
               "model (no clustered path); expect the corresponding device "
               "memory footprint or pass finestLevel= to cap levels")
     elif sparse:
-        refuse_sparse(meta, [meta.n_levels - 1])
+        print("curvature: sparse refinement detected -> clustered path")
+        n = curvature_clustered(meta, names, fabs, device, progress_name,
+                                aux_names, outfile, **kw)
+        print(f"wrote {outfile} ({n} clusters)")
+        return
     dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
                                            config.compute_dtype)
-    out = compute_curvature_dense(dstate, progress_name, do_strain=do_strain,
-                                  do_velnormal=do_velnormal, **kwargs)
-    if aux_names:
-        aux_idx = [dstate.comp(n) for n in aux_names]
-        data = [torch.cat([out.data[lev], dstate.data[lev][aux_idx]], dim=0)
-                for lev in range(meta.n_levels)]
-        out = out.with_data(out.names + aux_names, data)
-    outfile = pp.query_str("outfile", infile + "_K")
+    out = _with_aux(compute_curvature_dense(dstate, progress_name, **kw),
+                    dstate, aux_names, range(meta.n_levels))
     out.to_plotfile(outfile)
     print(f"wrote {outfile}")
+
+
+def _with_aux(out: DenseAmrState, src: DenseAmrState, aux_names, levels
+              ) -> DenseAmrState:
+    """``out`` with the aux components of ``src`` appended on ``levels``
+    (Aux_Variables pass-through, curvature.cpp:182-190)."""
+    if not aux_names:
+        return out
+    idx = [src.comp(n) for n in aux_names]
+    data = [torch.cat([out.data[lev], src.data[lev][idx]], dim=0)
+            if lev in levels else None for lev in range(out.meta.n_levels)]
+    return out.with_data(out.names + list(aux_names), data)
+
+
+def _host_minmax(fabs, ic: int, dtype: torch.dtype):
+    """(min, max) of component ic over every cell of a level's boxes, as
+    ``_file_minmax`` gives them for a level with no finer level (rounding
+    to ``dtype`` commutes with min and max)."""
+    np_dt = _np_dtype(dtype)
+    return (float(np_dt.type(np.min([f[ic].min() for f in fabs]))),
+            float(np_dt.type(np.max([f[ic].max() for f in fabs]))))
+
+
+def curvature_clustered(meta, names, fabs, device, progress_name, aux_names,
+                        outfile, **kw) -> int:
+    """The clustered curvature (JAX ``_main_clustered``): the GLOBAL
+    progress min/max over the coarse levels' valid cells and every finest
+    box (a per-cluster scan would normalise each cluster differently), then
+    ``use_file_minmax=False`` for every part; levels 0..fin-1 from one
+    coarse pass, the finest boxes from their clusters' runs, aux components
+    passed through from the part that computed them.  Returns the cluster
+    count."""
+    fin = meta.n_levels - 1
+    dt = config.compute_dtype
+    base = DenseAmrState.coarse_only(meta, names, fabs, device, dt)
+    ic = base.comp(progress_name)
+    if (kw["use_file_minmax"] or kw["prog_min"] is None
+            or kw["prog_max"] is None):
+        lo, hi = _file_minmax([(base.data[lev][ic], base.valid_mask(lev))
+                               for lev in range(fin)])
+        flo, fhi = _host_minmax(fabs[fin], ic, dt)
+        lo, hi = float(np.min([lo, flo])), float(np.max([hi, fhi]))
+        kw["prog_min"] = lo if kw["prog_min"] is None else min(
+            kw["prog_min"], lo)
+        kw["prog_max"] = hi if kw["prog_max"] is None else max(
+            kw["prog_max"], hi)
+    kw["use_file_minmax"] = False
+    return write_clustered(
+        base, fabs[fin], outfile,
+        lambda ds: _with_aux(compute_curvature_dense(ds, progress_name, **kw),
+                             ds, aux_names, range(fin)),
+        lambda sub: _with_aux(compute_curvature_dense(sub, progress_name,
+                                                      **kw),
+                              sub, aux_names, (fin,)))

@@ -9,6 +9,13 @@ level's four output components come from one ``grad_mag`` call, the CUDA
 kernel on the card.  ``fluxMatch=1`` takes the MLMG-style flux-matched
 gradient instead (``ops/restrict.py``), plain torch as in the JAX package,
 where that path has no kernel either.
+
+Sparse refinement (any level's union bbox wasting >4x its cells, over more
+than one level) takes the clustered path (JAX :229-315, amr/cluster.py):
+one coarse pass over levels 0..fin-1, then the finest level cluster by
+cluster, each cluster's boxes packed into the plotfile before the next is
+built.  ``force_dense=1`` builds the union bbox instead; ``fluxMatch=1``
+forces it.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ from typing import Optional, Sequence
 import torch
 
 from .. import config
-from ..amr.dense import DenseAmrState, needs_clustering
+from ..amr.cluster import cluster_substates, clustered, coarse_only_state
+from ..amr.dense import DenseAmrState, PlotfileRecords
 from ..amr.hierarchy import load_plotfile_fabs
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import FOEXTRAP, REFLECT_EVEN
@@ -37,33 +45,34 @@ def grad_bc(is_per: Sequence[bool], sym_dir: Optional[Sequence[int]] = None):
 
 
 def refuse_unported(pp: ParmParse) -> None:
-    """Options of the JAX tools that the port does not run yet: raise
-    instead of quietly taking another path."""
+    """Options of the JAX tools that the port does not run: raise instead
+    of quietly taking another path."""
     if pp.query_int("ndevices", 1) > 1:
         raise NotImplementedError(
             "ndevices>1 is not ported yet (ROADMAP.md Queue 1: multi-GPU)")
     if pp.query_int("shape_bucket", 0):
         raise NotImplementedError(
             "shape_bucket= shares XLA compiles and has no PyTorch "
-            "counterpart yet (ROADMAP.md Queue 1: sparse refinement)")
-
-
-def refuse_sparse(meta, levels: Sequence[int]) -> None:
-    if meta.n_levels > 1 and any(needs_clustering(meta.bas[l])
-                                 for l in levels):
+            "counterpart (ROADMAP.md Queue 1: Not to be ported)")
+    if pp.query_bool("cluster_batch", False):
         raise NotImplementedError(
-            "sparse refinement (a level's union bbox wastes >4x its cells) "
-            "is not ported yet (ROADMAP.md Queue 1: sparse refinement); "
-            "pass force_dense=1 to run the dense path anyway")
+            "cluster_batch=1 batches canonical clusters into one XLA "
+            "dispatch and has no PyTorch counterpart (ROADMAP.md Queue 1: "
+            "Not to be ported); cluster_batch=0 runs the clusters one after "
+            "another")
 
 
 def compute_grad_dense(dstate: DenseAmrState, var: str,
                        aux: Sequence[str] = (),
                        sym_dir: Optional[Sequence[int]] = None,
                        interp: str = "linear",
-                       flux_match: bool = False) -> DenseAmrState:
+                       flux_match: bool = False,
+                       levels: Optional[Sequence[int]] = None
+                       ) -> DenseAmrState:
     """Ghost fill + gradient kernel per level; with ``flux_match`` the
-    flux-matched gradient of all levels (plain torch)."""
+    flux-matched gradient of all levels (plain torch).  ``levels``: the
+    levels whose output is computed (every level by default); the others'
+    output tensors are None."""
     meta = dstate.meta
     bc = grad_bc([False] * meta.ndim, sym_dir)
     ic = dstate.comp(var)
@@ -79,10 +88,14 @@ def compute_grad_dense(dstate: DenseAmrState, var: str,
                                      dstate.flux_face_masks)
         gcomps = [torch.cat([*g, magnitude(*g)], dim=0) for g in gall]
     else:
+        want = range(meta.n_levels) if levels is None else levels
         gcomps = [grad_mag(g.contiguous(), meta.geoms[lev].dx, with_mag=True)
-                  for lev, g in enumerate(grown)]
+                  if lev in want else None for lev, g in enumerate(grown)]
     out_levels = []
     for lev, gcomp in enumerate(gcomps):
+        if gcomp is None:
+            out_levels.append(None)
+            continue
         passthrough = [dstate.data[lev][dstate.comp(n): dstate.comp(n) + 1]
                        for n in (var,) + tuple(aux)]
         out_levels.append(torch.cat(passthrough + [gcomp], dim=0))
@@ -94,7 +107,8 @@ def compute_grad_dense(dstate: DenseAmrState, var: str,
 def main(args: dict) -> None:
     """CLI: grad infile=<plt> [gradVar=temp] [outfile=...]
     [Aux_Variables=...] [is_per=1 1 1] [sym_dir=0 0 0] [finestLevel=]
-    [cf_interp=quadratic] [fluxMatch=0] [force_dense=0] [device=cuda|cpu]."""
+    [cf_interp=quadratic] [fluxMatch=0] [force_dense=0] [cluster_batch=0]
+    [device=cuda|cpu]."""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     var = pp.query_str("gradVar", "temp")
@@ -111,11 +125,60 @@ def main(args: dict) -> None:
     meta, names, fabs = load_plotfile_fabs(
         infile, names=[var] + list(aux), max_level=finest,
         is_periodic=[bool(p) for p in is_per])
-    if not pp.query_bool("force_dense", False):
-        refuse_sparse(meta, range(meta.n_levels))
+    kw = dict(aux=tuple(aux), sym_dir=sym_dir, interp=interp)
+    sparse = clustered(meta, pp, range(meta.n_levels))
+    if sparse and flux_match:
+        # the clustered path does not flux-match: fall back to the dense
+        # path (more device memory) rather than drop the request
+        print("grad: fluxMatch forces the dense path on this "
+              "sparse-refinement plotfile (higher device memory footprint)")
+        sparse = False
+    if sparse:
+        print("grad: sparse refinement detected -> clustered path")
+        n = grad_clustered(meta, names, fabs, device, var, outfile, **kw)
+        print(f"wrote {outfile} ({n} clusters)")
+        return
     dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
                                            config.compute_dtype)
-    out = compute_grad_dense(dstate, var, aux=tuple(aux), sym_dir=sym_dir,
-                             interp=interp, flux_match=flux_match)
+    out = compute_grad_dense(dstate, var, flux_match=flux_match, **kw)
     out.to_plotfile(outfile)
     print(f"wrote {outfile}")
+
+
+def grad_clustered(meta, names, fabs, device, var: str, outfile: str,
+                   **kw) -> int:
+    """The clustered grad (JAX tools/grad.py:256-315): levels 0..fin-1 from
+    one coarse pass (a fill never reads finer levels, so they equal the full
+    run's), the finest level's boxes from their clusters' runs, which skip
+    the coarse levels' gradients.  Only the finest level of a cluster is
+    split, whichever level tripped the gate.  Returns the cluster count."""
+    base = DenseAmrState.coarse_only(meta, names, fabs, device,
+                                     config.compute_dtype)
+    return write_clustered(
+        base, fabs[-1], outfile,
+        lambda ds: compute_grad_dense(ds, var, **kw),
+        lambda sub: compute_grad_dense(sub, var, levels=(meta.n_levels - 1,),
+                                       **kw))
+
+
+def write_clustered(base: DenseAmrState, fin_fabs, outfile: str,
+                    run_coarse, run_cluster) -> int:
+    """The plotfile of a clustered stencil tool over a coarse-only ``base``:
+    levels 0..fin-1 from ``run_coarse`` of the coarse-only state, then each
+    cluster's finest boxes from ``run_cluster`` of its substate, packed and
+    copied before the next cluster is built.  Returns the cluster count."""
+    meta = base.meta
+    fin = meta.n_levels - 1
+    groups, subs = cluster_substates(base, fin_fabs)
+    coarse = run_coarse(coarse_only_state(base))
+    out = PlotfileRecords(meta, coarse.names)
+    for lev in range(fin):
+        out.add(lev, coarse.data[lev], coarse.lmeta[lev].bbox,
+                range(len(meta.bas[lev])))
+    del coarse
+    for g, sub in zip(groups, subs):
+        res = run_cluster(sub)
+        out.add(fin, res.data[fin], res.lmeta[fin].bbox, g)
+        del sub, res
+    out.write(outfile)
+    return len(groups)

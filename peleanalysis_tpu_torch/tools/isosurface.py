@@ -6,7 +6,12 @@ Src/isosurface.cpp.  CLI keys follow isosurface.cpp:1295-1399,1894-2238:
 infile, isoCompName (default temp), isoVal, comps / sComp+nComp (extra node
 fields), finestLevel, is_per, writeSurf, surfFormat=MEF|DAT|XDMF,
 outfile_base, computeArea.  The engine lives in ``geom/marching_cubes.py``
-(``geom/marching_squares.py`` for DIM=2 plotfiles).
+(``geom/marching_squares.py`` for DIM=2 plotfiles).  A 3-D hierarchy of
+more than one level whose finest union bbox wastes >4x its cells, or any
+such hierarchy with ``surface_is_large=1``, takes the clustered path
+(``extract_isosurface_sparse``; JAX :71-74): ``surface_is_large`` is the
+reference's disk-staged memory valve (isosurface.cpp:1919-1998), and the
+clustered path is the valve here.
 """
 from __future__ import annotations
 
@@ -15,15 +20,17 @@ import time
 import torch
 
 from .. import config
+from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import load_plotfile_fabs
-from ..geom.marching_cubes import extract_isosurface, surface_area
+from ..geom.marching_cubes import (extract_isosurface,
+                                   extract_isosurface_sparse, surface_area)
 from ..geom.marching_squares import extract_isolines
 from ..io.mef import write_mef, write_mef_tecplot
 from ..io.plotfile import PlotfileReader
 from ..io.xdmf import write_xdmf
 from ..parmparse import ParmParse
-from .grad import refuse_sparse, refuse_unported
+from .grad import refuse_unported
 
 
 def refuse_unported_iso(pp: ParmParse) -> None:
@@ -34,10 +41,6 @@ def refuse_unported_iso(pp: ParmParse) -> None:
         raise NotImplementedError(
             "build_distance_function=1 needs geom/sdf.py, which is not ported "
             "yet (ROADMAP.md Queue 1 item 8: the remaining tools)")
-    if pp.query_bool("surface_is_large", False):
-        raise NotImplementedError(
-            "surface_is_large=1 runs the sparse clustered path, which is not "
-            "ported yet (ROADMAP.md Queue 1 item 7: sparse refinement)")
 
 
 def main(args: dict) -> None:
@@ -45,8 +48,8 @@ def main(args: dict) -> None:
     [comps=<extra node fields>] [sComp= nComp=] [finestLevel=]
     [is_per=0 0 0] [writeSurf=1] [surfFormat=MEF|DAT|XDMF] [outfile_base=]
     [computeArea=0] [engine=enum] [rm_external_elements=1] [force_dense=0]
-    [verbose=0] [device=cuda|cpu].  The plotfile loads in float64 whatever
-    dtype=."""
+    [surface_is_large=0] [cluster_batch=0] [verbose=0] [device=cuda|cpu].
+    The plotfile loads in float64 whatever dtype=."""
     pp = ParmParse(args)
     verbose = pp.query_int("verbose", 0)
     infile = pp.get_str("infile")
@@ -81,18 +84,29 @@ def main(args: dict) -> None:
         raise NotImplementedError(
             "writeLines=1 needs geom/mef_tools.py, which is not ported yet "
             "(ROADMAP.md Queue 1 item 8: the remaining tools)")
-    if not meta.ndim2 and not pp.query_bool("force_dense", False):
-        refuse_sparse(meta, [meta.n_levels - 1])
-    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                       torch.float64)
-    t1 = time.perf_counter()
+    fin = meta.n_levels - 1
+    sparse = not meta.ndim2 and clustered(
+        meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
     label = f"{meta.time:g}"
-    if meta.ndim2:
-        # DIM=2 plotfile: marching squares -> polyline contour MEF
-        mef = extract_isolines(ds, iso_name, iso_val, extras, label=label)
+    if sparse:
+        print("isosurface: sparse refinement detected -> clustered path")
+        base = DenseAmrState.coarse_only(meta, names, fabs, device,
+                                         torch.float64)
+        t1 = time.perf_counter()
+        mef = extract_isosurface_sparse(base, fabs[fin], iso_name, iso_val,
+                                        extras, label=label)
+        del base
     else:
-        mef = extract_isosurface(ds, iso_name, iso_val, extras, label=label,
-                                 classify=engine)
+        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
+                                           torch.float64)
+        t1 = time.perf_counter()
+        if meta.ndim2:
+            # DIM=2 plotfile: marching squares -> polyline contour MEF
+            mef = extract_isolines(ds, iso_name, iso_val, extras,
+                                   label=label)
+        else:
+            mef = extract_isosurface(ds, iso_name, iso_val, extras,
+                                     label=label, classify=engine)
     t2 = time.perf_counter()
     base = pp.query_str("outfile_base", f"{infile}_{iso_name}_{iso_val:g}")
     if pp.query_bool("writeSurf", True):

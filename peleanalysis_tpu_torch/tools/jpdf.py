@@ -19,7 +19,11 @@ binX1/binX2.  Reproduced:
 
 All pairs of a level are one launch of the stats kernel on the card
 (``ops/stats_kernels.joint_hist``).  The files of a series are read one
-after another; ``prefetch=`` is accepted and changes nothing.
+after another; ``prefetch=`` is accepted and changes nothing.  Sparse
+refinement (the finest union bbox wasting >4x its cells) accumulates the
+coarse levels once and the finest level cluster by cluster (JAX :294-332):
+one pass over the parts for the variables' min/max, a second for the
+histograms; the weights are physical cell volumes, so no part is rescaled.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from ..io.plotfile import write_plotfile
 from ..ops.stats import joint_pdf, joint_pdf_multi, masked_mean
 from ..ops.stencil import _const
 from ..parmparse import ParmParse
-from .conditional_mean import _fetch, load_dense
+from .conditional_mean import _fetch, load_parts
 from .curvature import _masked_minmax
 from .grad import refuse_unported
 
@@ -252,7 +256,7 @@ def main(args: dict) -> None:
     [do_stoichiometry=0 Hlist=... Olist=...] [do_average=0]
     [output_gnuplot/matlab/tecplot/fab/scatter/plotfile=..] [outSuffix=]
     [finestLevel=] [prefetch=1 (accepted; files are read one after another)]
-    [force_dense=0] [device=cuda|cpu]"""
+    [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
     nbins = pp.query_int("nBins", 64)
@@ -290,8 +294,8 @@ def main(args: dict) -> None:
     pairs = tuple((a, bvar) for a in range(nvars)
                   for bvar in range(a + 1, nvars))
 
-    for plt in infiles:
-        ds = load_dense(plt, names, finest, device, pp)
+    def part_inputs(ds):
+        """The part's per-level fields by name and conditioning masks."""
         fields = {n: [ds.data[lev][ds.comp(n)]
                       for lev in range(ds.meta.n_levels)] for n in names}
         if do_stoich:
@@ -299,9 +303,8 @@ def main(args: dict) -> None:
                                                           o_list)
         cond_levels = None
         if do_cond:
-            cname = names_all[cvar]
             cond_levels = []
-            for cval in fields[cname]:
+            for cval in fields[names_all[cvar]]:
                 if norm_c:
                     cval = (cval - _const(cnmin, cval)) \
                         / _const(cnmax - cnmin, cval)
@@ -309,28 +312,42 @@ def main(args: dict) -> None:
                     cval = cval * (1.0 - cval)
                 cond_levels.append((cval >= _const(cmin, cval))
                                    & (cval <= _const(cmax, cval)))
+        return fields, cond_levels
 
-        vmin, vmax = {}, {}
+    for plt in infiles:
+        meta, parts = load_parts(plt, names, finest, device, pp, "jpdf")
+        bounds = {}
         for i, n in enumerate(names_all):
-            if n == "Stoichiometry":
-                vmin[n], vmax[n] = 0.0, 2.0
-            else:
-                vmin[n], vmax[n] = valid_minmax(ds, ds.comp(n))
             mm = pp.query_float_list(f"useminmax{i+1}", None)
             if mm:
-                vmin[n], vmax[n] = mm[0], mm[1]
+                bounds[n] = (mm[0], mm[1])
+            elif n == "Stoichiometry":
+                bounds[n] = (0.0, 2.0)
+        # the other variables' min/max over the valid cells of every part,
+        # in one pass over the parts
+        scan = [n for n in names_all if n not in bounds]
+        mms = [[valid_minmax(ds, ds.comp(n)) for n in scan]
+               for ds, _ in (parts if scan else [])]
+        for k, n in enumerate(scan):
+            bounds[n] = (min(m[k][0] for m in mms), max(m[k][1] for m in mms))
+        vmin = {n: lo for n, (lo, _) in bounds.items()}
+        vmax = {n: hi for n, (_, hi) in bounds.items()}
 
-        g = ds.meta.geoms[0]
+        g = meta.geoms[0]
         domain_vol = float(np.prod([h - l for l, h in
                                     zip(g.prob_lo, g.prob_hi)]))
         base = plt + out_suffix
         os.makedirs(base, exist_ok=True)
 
-        if pairs:
-            bP, bx1P, bx2P = compute_jpdf_pairs(
+        bP = bx1P = bx2P = 0.0
+        for ds, _ in (parts if pairs else []):
+            fields, cond_levels = part_inputs(ds)
+            bb, b1, b2 = compute_jpdf_pairs(
                 ds, [fields[n] for n in names_all],
                 [vmin[n] for n in names_all], [vmax[n] for n in names_all],
                 nbins, pairs, cond_levels)
+            bP, bx1P, bx2P = bP + bb, bx1P + b1, bx2P + b2
+            del ds, fields, cond_levels
         for ipair, (a, bvar) in enumerate(pairs):
             n1, n2 = names_all[a], names_all[bvar]
             b, bx1, bx2 = bP[ipair], bx1P[ipair], bx2P[ipair]

@@ -6,7 +6,9 @@ Counterpart of ``peleanalysis_tpu/tools/sample_streamlines.py`` (dense
 path).  Each line is sampled in the level that owns its seed, from a grown
 dense array covering the line extents (the reference's nGrow strategy),
 with the same trilinear math as tracing.  Memory-limited component groups
-(nCompsPerPass) chunk the sampled variable list.
+(nCompsPerPass) chunk the sampled variable list.  Sparse refinement (the
+finest union bbox wasting >4x its cells) samples cluster by cluster
+(``sample_onto_lines_sparse``; JAX :64-101).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..amr.cluster import cluster_substates, clustered
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import PlotfileReader
@@ -21,8 +24,9 @@ from ..io.stream_data import StreamData, read_stream_data, write_stream_data
 from ..ops.dense_fill import fill_dense_arrays
 from ..parmparse import ParmParse
 from ..stream.surface import arc_length
-from ..stream.trace import _sample_fields, assign_seeds_to_levels
-from .grad import refuse_sparse, refuse_unported
+from ..stream.trace import (_sample_fields, assign_seeds_to_levels,
+                            finest_cluster_of)
+from .grad import refuse_unported
 from .stream import write_tecplot_lines
 
 
@@ -63,10 +67,45 @@ def sample_onto_lines(ds: DenseAmrState, lines: np.ndarray,
     return out
 
 
+def sample_onto_lines_sparse(base: DenseAmrState, fin_fabs,
+                             lines: np.ndarray, names) -> np.ndarray:
+    """Sparse refinement sampling (JAX :64-101): the lines are partitioned
+    by the finest-level cluster holding their seed, and each cluster's lines
+    are sampled on its substate of the coarse-only ``base`` (``fin_fabs``
+    the finest level's per-box host arrays).  Clusters are separated by the
+    largest distance any line wanders from its seed, in finest cells, + 3,
+    so each cluster's grown fill is exact.  Lines with no owning cluster are
+    sampled on the first cluster's substate, as in the JAX package: its
+    coarse levels are the global ones."""
+    meta = base.meta
+    fin = meta.n_levels - 1
+    out = np.zeros(lines.shape[:2] + (len(names),))
+    if lines.shape[0] == 0:
+        return out
+    seeds = lines[:, (lines.shape[1] - 1) // 2, :3]
+    reach = np.abs(lines[:, :, :3] - seeds[:, None]).max() \
+        / min(meta.geoms[fin].dx)
+    groups, subs = cluster_substates(base, fin_fabs,
+                                     dist=int(np.ceil(reach)) + 3)
+    cluster_of = finest_cluster_of(meta, groups, seeds)
+    for gi in range(len(groups)):
+        sels = [np.nonzero(cluster_of == gi)[0]]
+        if gi == 0:
+            sels.append(np.nonzero(cluster_of < 0)[0])
+        sels = [sel for sel in sels if len(sel)]
+        if sels:
+            sub = subs[gi]
+            for sel in sels:
+                out[sel] = sample_onto_lines(sub, lines[sel], names)
+            del sub
+    return out
+
+
 def main(args: dict) -> None:
     """CLI: sampleStreamlines plotfile= pathFile= [comps=... | sComp= nComp=]
     [nCompsPerPass=-1] [streamSampleFile= | outfile= | outFile=]
-    [is_per=1 1 1] [finestLevel=] [device=cuda|cpu].  Loads float64."""
+    [is_per=1 1 1] [finestLevel=] [force_dense=0] [cluster_batch=0]
+    [device=cuda|cpu].  Loads float64."""
     pp = ParmParse(args)
     plotfile = pp.get_str("plotfile")
     path_file = pp.get_str("pathFile")
@@ -89,18 +128,22 @@ def main(args: dict) -> None:
     # reference default: periodic in every dim (sampleStreamlines.cpp:163)
     is_per = [bool(p) for p in pp.query_int_list("is_per", [1, 1, 1])]
     finest = pp.query_int("finestLevel", None)
-    force_dense = pp.query_bool("force_dense", False)
     sampled = []
     for i in range(0, len(names), per_pass):
         grp = names[i: i + per_pass]
         meta, lnames, fabs = load_plotfile_fabs(plotfile, names=grp,
                                                 max_level=finest,
                                                 is_periodic=is_per)
-        if not force_dense:
-            refuse_sparse(meta, [meta.n_levels - 1])
-        ds = DenseAmrState.from_level_fabs(meta, lnames, fabs, device,
-                                           torch.float64)
-        sampled.append(sample_onto_lines(ds, sd.lines, grp))
+        if clustered(meta, pp, [meta.n_levels - 1]):
+            print("sampleStreamlines: sparse refinement -> clustered path")
+            base = DenseAmrState.coarse_only(meta, lnames, fabs, device,
+                                             torch.float64)
+            sampled.append(sample_onto_lines_sparse(base, fabs[-1],
+                                                    sd.lines, grp))
+        else:
+            ds = DenseAmrState.from_level_fabs(meta, lnames, fabs, device,
+                                               torch.float64)
+            sampled.append(sample_onto_lines(ds, sd.lines, grp))
     # the reference schema is X,Y,Z, distance_from_seed, <vars>
     # (sampleStreamlines.cpp:145,203): signed arclength, zero at the seed
     s = arc_length(sd.lines)

@@ -8,6 +8,8 @@ traceAlongV, nRKsteps, hRK, aux_comps sampled onto lines, streamFile
 (StreamData out) and/or outFile (Tecplot dump); buildAltSurf + altVal + dt +
 thermal-thickness / cold-strain / angle decorators (stream.cpp:973-1107).
 Every march runs the CUDA kernel on the card (``stream/march_kernels.py``).
+Sparse refinement (the finest union bbox wasting >4x its cells) traces
+cluster by cluster (``trace_streamlines_sparse``; JAX :132-185).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import load_plotfile_fabs
 from ..io.mef import MEF, read_mef, write_mef
@@ -23,8 +26,9 @@ from ..io.stream_data import StreamData, compute_inside_nodes, write_stream_data
 from ..native import tecplot_zones
 from ..parmparse import ParmParse
 from ..stream import surface as surf
-from ..stream.trace import seed_rake, trace_streamlines
-from .grad import refuse_sparse, refuse_unported
+from ..stream.trace import (seed_rake, trace_streamlines,
+                            trace_streamlines_sparse)
+from .grad import refuse_unported
 
 
 def get_seeds(pp: ParmParse):
@@ -63,7 +67,8 @@ def main(args: dict) -> None:
     compressed] (streamFile=<StreamData out> and/or outFile=<Tecplot out>)
     [sd_version=0|1.0] [buildAltSurf=1 altVal= dt= thickCompName= thickLo=
     thickHi= strainCompName= TCompName= TVal= addAngle= altIsoFile=]
-    [device=cuda|cpu].  The plotfile loads in float64 whatever dtype=."""
+    [force_dense=0] [cluster_batch=0] [device=cuda|cpu].  The plotfile
+    loads in float64 whatever dtype=."""
     pp = ParmParse(args)
     verbose = pp.query_int("verbose", 0)
     plotfile = pp.get_str("plotfile")
@@ -104,10 +109,14 @@ def main(args: dict) -> None:
     meta, names, fabs = load_plotfile_fabs(
         plotfile, names=load, max_level=finest,
         is_periodic=[bool(p) for p in is_per])
-    if not pp.query_bool("force_dense", False):
-        refuse_sparse(meta, [meta.n_levels - 1])
-    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
+    sparse = clustered(meta, pp, [meta.n_levels - 1])
+    if sparse:
+        print("stream: sparse refinement detected -> clustered path")
+        ds = DenseAmrState.coarse_only(meta, names, fabs, device,
                                        torch.float64)
+    else:
+        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
+                                           torch.float64)
     seeds, elements = get_seeds(pp)
     if pp.contains("bounds"):
         # limit seed points to a physical sub-box, dropping elements that
@@ -127,14 +136,17 @@ def main(args: dict) -> None:
     # lossily exactly when the field is marched in bfloat16
     fcomp = {"exact": False, "compressed": True, "auto": None}[
         pp.query_str("fetch_precision", "auto")]
-    lines = trace_streamlines(
-        ds, seeds, n_rk, h_rk,
-        trace_field=None if trace_along_v else progress_name,
-        sample_names=sample,
-        march_dtype=pp.query_str("marchPrecision", None),
-        march_engine=pp.query_str("marchEngine", "auto"),
-        ngrow=pp.query_int("nGrow", None),
-        fetch_compress=fcomp)
+    kw = dict(trace_field=None if trace_along_v else progress_name,
+              sample_names=sample,
+              march_dtype=pp.query_str("marchPrecision", None),
+              march_engine=pp.query_str("marchEngine", "auto"),
+              ngrow=pp.query_int("nGrow", None), fetch_compress=fcomp)
+    if sparse:
+        lines = trace_streamlines_sparse(ds, fabs[-1], seeds, n_rk, h_rk,
+                                         **kw)
+    else:
+        lines = trace_streamlines(ds, seeds, n_rk, h_rk, **kw)
+    del ds
     names = ["X", "Y", "Z"] + sample
     elements = np.asarray(elements, np.int32)
 

@@ -17,7 +17,7 @@ from peleanalysis_tpu_torch.amr.dense import DenseAmrState
 from peleanalysis_tpu_torch.amr.geometry import Geometry
 from peleanalysis_tpu_torch.amr.hierarchy import AmrMeta
 from peleanalysis_tpu_torch.io.plotfile import PlotfileReader
-from peleanalysis_tpu_torch.tools.grad import compute_grad_dense, refuse_sparse
+from peleanalysis_tpu_torch.tools.grad import compute_grad_dense
 
 # f64: 1e-12 (same formulas in the same order; sqrt may differ by 1 ulp);
 # f32: 1e-5 relative plus 1e-5 of the largest value, for cells near zero
@@ -105,17 +105,34 @@ def test_unported_options_raise(small_plotfile, tmp_path, key):
     assert not (tmp_path / "out").exists()
 
 
-def test_sparse_refinement_raises():
-    dom0 = Box((0, 0, 0), (127, 127, 127))
+def test_sparse_refinement_raises(tmp_path, capsys):
+    """Sparse refinement no longer raises: the clustered path runs and its
+    plotfile equals the force_dense=1 run's (float32, every cell through
+    the same ops on the same inputs)."""
+    from peleanalysis_tpu_torch.io.plotfile import write_plotfile
+    from peleanalysis_tpu_torch.testing import default_fields, make_level_data
+    dom0 = Box((0, 0, 0), (47, 47, 47))
     geoms = [Geometry(dom0, (0.0,) * 3, (1.0,) * 3, (False,) * 3)]
     geoms.append(geoms[0].refine(4))
     # two small patches far apart: a huge, mostly empty union bbox
-    fine = BoxArray([Box((8, 8, 8), (39, 39, 39)),
-                     Box((400, 400, 400), (431, 431, 431))])
-    meta = AmrMeta(geoms, [BoxArray([dom0]), fine], [4])
-    with pytest.raises(NotImplementedError, match="sparse refinement"):
-        refuse_sparse(meta, [1])
-    refuse_sparse(meta, [0])          # level 0 alone is dense
+    fine = BoxArray([Box((8, 8, 8), (23, 23, 23)),
+                     Box((168, 168, 168), (183, 183, 183))])
+    bas = [BoxArray([dom0]), fine]
+    names, data = make_level_data(geoms, bas, {"temp": default_fields()[
+        "temp"]})
+    plt = str(tmp_path / "plt")
+    write_plotfile(plt, names, 0.0, geoms, [4], bas, data)
+    outs = {}
+    for mode, extra in (("clustered", []), ("dense", ["force_dense=1"])):
+        outs[mode] = str(tmp_path / mode)
+        assert cli.main(["grad", f"infile={plt}", f"outfile={outs[mode]}",
+                         "device=cpu", *extra]) == 0
+        assert ("clustered path" in capsys.readouterr().out) == (
+            mode == "clustered")
+    ra, rb = PlotfileReader(outs["clustered"]), PlotfileReader(outs["dense"])
+    for lev in range(2):
+        for fa, fb in zip(ra.read_level(lev), rb.read_level(lev)):
+            np.testing.assert_array_equal(fa, fb)
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):

@@ -68,7 +68,7 @@ def test_every_port_module_imports_without_jax():
               "geom.marching_cubes", "geom.marching_squares", "io.xdmf",
               "tools.isosurface", "ops.restrict", "ops.solve", "ops.stats",
               "ops.stats_kernels", "tools.conditional_mean", "tools.jpdf",
-              "native", "io.fab_pack"):
+              "native", "io.fab_pack", "amr.cluster"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"

@@ -27,6 +27,7 @@ from peleanalysis_tpu.stream.trace import \
 from peleanalysis_tpu.testing import make_amr_hierarchy as jax_hierarchy
 from peleanalysis_tpu_torch import cli
 from peleanalysis_tpu_torch import config as port_config
+from peleanalysis_tpu_torch.amr import cluster as port_cluster
 from peleanalysis_tpu_torch.amr.dense import DenseAmrState
 from peleanalysis_tpu_torch.amr.hierarchy import AmrMeta
 from peleanalysis_tpu_torch.io import mef as port_mef
@@ -389,21 +390,29 @@ def test_trace_streamlines_2d_promotion(tmp_path, trace_field):
     np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
 
 
-def test_stream_refusals(case, tmp_path, monkeypatch):
+def test_stream_refusals(case, tmp_path, monkeypatch, capsys):
+    """stream without an output refuses; a hierarchy taken for sparse
+    refinement runs the clustered stream and sampleStreamlines, whose files
+    equal the force_dense=1 runs'."""
     _, plt = case
     common = [f"plotfile={plt}", "seedLoc=0.5 0.5 0.6", "device=cpu"]
     with pytest.raises(ValueError, match="streamFile or outFile"):
         cli.main(["stream", *common])
-    monkeypatch.setattr(port_grad_tool, "needs_clustering", lambda ba: True)
-    out = f"streamFile={tmp_path / 'sd'}"
-    with pytest.raises(NotImplementedError, match="sparse refinement"):
-        cli.main(["stream", *common, out])
-    assert not (tmp_path / "sd").exists()
-    assert cli.main(["stream", *common, out, "force_dense=1"]) == 0
-    samp = ["sampleStreamlines", f"plotfile={plt}",
-            f"pathFile={tmp_path / 'sd'}", "comps=temp",
-            f"streamSampleFile={tmp_path / 'sd2'}", "device=cpu"]
-    with pytest.raises(NotImplementedError, match="sparse refinement"):
-        cli.main(samp)
-    assert not (tmp_path / "sd2").exists()
-    assert cli.main([*samp, "force_dense=1"]) == 0
+    monkeypatch.setattr(port_cluster, "needs_clustering", lambda ba: True)
+    seeds = ["seedRakeL=0.2 0.3 0.4", "seedRakeR=0.7 0.6 0.5",
+             "seedRakeNum=12", f"plotfile={plt}", "device=cpu"]
+    for mode, extra in (("c", []), ("d", ["force_dense=1"])):
+        sd, sd2 = tmp_path / f"sd_{mode}", tmp_path / f"sd2_{mode}"
+        assert cli.main(["stream", *seeds, f"streamFile={sd}",
+                         *extra]) == 0
+        assert cli.main(["sampleStreamlines", f"plotfile={plt}",
+                         f"pathFile={sd}", "comps=temp density",
+                         f"streamSampleFile={sd2}", "device=cpu",
+                         *extra]) == 0
+        assert capsys.readouterr().out.count("clustered path") == (
+            2 if mode == "c" else 0)
+    for name in ("sd", "sd2"):
+        a = port_sd.read_stream_data(str(tmp_path / f"{name}_c"))
+        b = port_sd.read_stream_data(str(tmp_path / f"{name}_d"))
+        assert a.names == b.names
+        np.testing.assert_allclose(a.lines, b.lines, rtol=0, atol=TOL)
