@@ -2,8 +2,9 @@
 check each against its plain PyTorch version, drive the grad (also
 fluxMatch=1), curvature (also do_smooth=1), stream, sampleStreamlines,
 isosurface, conditionalMean and jpdf tools through their CLI on
-synthetic 3-level hierarchies, and time the main path (grad, curvature,
-isosurface).
+synthetic 3-level hierarchies, time the main path (grad, curvature,
+isosurface), and drive partStream, integral, rmsVel, filterPlt,
+flattenAMRFile and the turbulence tools at full size.
 
     python3 chip_smoke.py
 
@@ -114,13 +115,33 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                curvature once more with every grad_mag call held against
                grad_mag_torch (64 x 64 x 832 clusters, the 256^3 coarse
                pass)
-The errors of 12 and 12b go into the kernel summary's max_abs_err.
+  13 tools8  - partStream (the 130k-node MEF, Nsteps=51, Tecplot, particle
+               and StreamData files; oneSeedPerCell with seedStride=64),
+               integral (1 as ppm, 2, 3, 3 with cVar), rmsVel (3 files),
+               filterPlt box and gaussian at production size;
+               flattenAMRFile of the repo case to 256^3; the four
+               turbulence_post verbs and turbulenceSpectra on a periodic
+               256^3 HIT run of two plotfiles; turbulenceSpectra at
+               production's 512^3 finest level.  Launches counted (counts
+               set to 0 just before the cold runs, read just after: the
+               "launches_tools8" of the kernel summary), warm walls split
+               into read / compute / write with peak device memory and
+               device time (torch.profiler), the HIT closed forms
+               (kin_energy_adim 0.5, magvort with sin(kh)/kh, divu^2 <
+               1e-12, <T'^2>, Parseval in shell 1), partStream's lines
+               bitwise equal to `stream traceAlongV=1`, every verb card vs
+               CPU at the repo case (HIT at 64^3), and partStream and
+               turbulenceSlice once more under HeldAgainstPlain (grad_mag
+               at grown 258^3, the march at 260k lines)
+The errors of 12, 12b and 13 go into the kernel summary's max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import filecmp
+import io
 import json
 import os
 import shutil
@@ -152,6 +173,7 @@ from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
 from peleanalysis_tpu_torch.io.fab import fab_header_str
 from peleanalysis_tpu_torch.io.fab_pack import fetch_level, level_records
 from peleanalysis_tpu_torch.io.mef import MEF, read_mef, write_mef
+from peleanalysis_tpu_torch.io.particles import read_particles
 from peleanalysis_tpu_torch.io.plotfile import (PlotfileReader,
                                                 write_plotfile_header)
 from peleanalysis_tpu_torch.io.stream_data import (StreamData,
@@ -164,6 +186,7 @@ from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
 from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
+                                            write_hit_run,
                                             write_scattered_plotfile,
                                             write_synthetic_plotfile)
 from peleanalysis_tpu_torch.tools.conditional_mean import (
@@ -905,6 +928,44 @@ def device_write_split(ds, path: str) -> dict:
     return t
 
 
+PROFILE_PAUSES_S = (0.5, 2.0)
+
+
+def profiled(fn):
+    """fn() once under torch.profiler, in a window the trace holds whole: a
+    marker kernel (``torch.cuda._sleep``, "spin_kernel") just before fn and
+    one just after it must both be among the trace's device events.  The
+    device events of a session's first few hundred ms can be missing from
+    the trace (seen in a long process: every event of a 0.3 s tool run), so
+    fn starts after a pause, and the trace stays open as long after it; a
+    window that lost a marker is taken again after a longer pause.  Returns
+    (prof, fn's host wall seconds, the device events between the markers
+    in start order, whether both markers were seen; if not, every device
+    event of the last try)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for pause in PROFILE_PAUSES_S:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(pause)
+            torch.cuda._sleep(1000)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        dev = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+        marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name()]
+        if len(marks) == 2:
+            return prof, wall, dev[marks[0] + 1: marks[1]], True
+    return prof, wall, [e for e in dev if "spin_kernel" not in e.name()], \
+        False
+
+
 def d2h_copies(fn) -> int:
     """Device-to-host copies the card makes during fn() (torch.profiler)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -992,23 +1053,16 @@ def profiled_trace(fn) -> dict:
     """fn() once under torch.profiler: its host wall time and the device
     time of its device-to-host copies, of its march kernel launches and of
     the march's locality order (key kernel and radix sort)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = prof.key_averages()
+    _, wall, dev, whole = profiled(fn)
 
     def device_ms(part: str) -> float:
-        return sum(e.device_time_total for e in ev if part in e.key) / 1e3
+        return sum(e.end_ns() - e.start_ns() for e in dev
+                   if part in e.name()) / 1e6
 
     return {"wall_s": wall, "d2h_ms": device_ms("Memcpy DtoH"),
             "march_kernel_ms": device_ms("march_kernel"),
             "march_order_ms": device_ms("order_key_kernel")
-            + device_ms("RadixSort")}
+            + device_ms("RadixSort"), "trace_whole": whole}
 
 
 def tecplot_python(names, lines: np.ndarray) -> bytes:
@@ -1314,14 +1368,7 @@ def stage_profile(fn) -> dict:
     """fn() once under torch.profiler: wall time, and the device time of
     every op attributed to the innermost ``isosurface.<stage>`` range
     around it (the engine's stages; "other" outside them)."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof, wall, _, whole = profiled(fn)
     stage_us, launches = defaultdict(float), defaultdict(int)
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CPU:
@@ -1340,7 +1387,7 @@ def stage_profile(fn) -> dict:
             "device_busy": device_ms / (wall * 1e3),
             "stage_device_ms": {k: v / 1e3 for k, v in
                                 sorted(stage_us.items(), key=lambda x: -x[1])},
-            "stage_kernels": dict(launches)}
+            "stage_kernels": dict(launches), "trace_whole": whole}
 
 
 def phase_iso_prod(tmp: str, dev) -> None:
@@ -1708,28 +1755,23 @@ def phase_stats_kernel(dev) -> dict:
 
 # -- phase 9 --------------------------------------------------------------------
 def kernel_profile(fn, names=()) -> dict:
-    """fn() once under torch.profiler: wall ms, device ms and kernel
-    launches, and the device ms of the kernels whose names hold each of
-    ``names``."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the device's own events: kernels (ctypes launches included, which no
-    # PyTorch op owns), copies and memsets
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {"wall_ms": wall * 1e3,
-           "device_ms": sum(e.device_time_total for e in dev) / 1e3,
+    """fn() once under torch.profiler (``profiled``): wall ms, device ms
+    and kernel launches, and the device ms of the kernels whose names hold
+    each of ``names``.  The device's own events count: kernels (ctypes
+    launches included, which no PyTorch op owns), copies and memsets."""
+    _, wall, dev, whole = profiled(fn)
+
+    def ms(evs) -> float:
+        return sum(e.end_ns() - e.start_ns() for e in evs) / 1e6
+
+    out = {"wall_ms": wall * 1e3, "device_ms": ms(dev),
+           "copy_ms": ms(e for e in dev if e.name().startswith("Memcpy")),
            "kernels": sum(1 for e in dev
-                          if not e.name.startswith(("Memcpy", "Memset")))}
+                          if not e.name().startswith(("Memcpy", "Memset"))),
+           "trace_whole": whole}
     if names:
-        out["device_ms_of"] = {n: sum(e.device_time_total for e in dev
-                                      if n in e.name) / 1e3 for n in names}
+        out["device_ms_of"] = {n: ms(e for e in dev if n in e.name())
+                               for n in names}
     return out
 
 
@@ -1749,7 +1791,7 @@ def solve_cost(plt: str, dev) -> dict:
     waits = (host_waits(lambda: compute_curvature_dense(ds, "temp", **smooth))
              - host_waits(lambda: compute_curvature_dense(ds, "temp",
                                                           **plain)))
-    d = {k: a[k] - b[k] for k in a}
+    d = {k: a[k] - b[k] for k in ("wall_ms", "device_ms", "kernels")}
     return {"iterations": iters, "with_smooth": a, "without": b,
             "solve": d, "solve_share_of_wall": d["wall_ms"] / a["wall_ms"],
             "host_share_of_solve": 1.0 - d["device_ms"] / d["wall_ms"],
@@ -2264,9 +2306,11 @@ class HeldAgainstPlain:
     def __init__(self):
         from peleanalysis_tpu_torch.ops import stats as ops_stats
         from peleanalysis_tpu_torch.stream import trace
-        from peleanalysis_tpu_torch.tools import curvature, grad
+        from peleanalysis_tpu_torch.tools import (curvature, grad,
+                                                  turbulence_post)
         self.sites = [(m, "grad_mag", "grad_mag", gk.grad_mag_torch,
-                       self._grad) for m in (grad, curvature, trace)]
+                       self._grad)
+                      for m in (grad, curvature, trace, turbulence_post)]
         self.sites += [
             (trace, "march", "stream_march", mk.march_torch, self._march),
             (mk, "order_key", "stream_march_order_key", mk.order_key_torch,
@@ -2592,6 +2636,471 @@ def phase_sparse_scale(tmp: str, dev) -> float:
     return held.seen["grad_mag"]["max_abs_err"]
 
 
+# -- phase 13 -------------------------------------------------------------------
+# HIT: one periodic 256^3 level of testing.hit_fields in 64^3 boxes (16.8 M
+# cells, 671 MB a float64 plotfile); its card-vs-CPU twin at 64^3
+HIT_CASE = dict(n_cell=256, max_grid_size=64)
+HIT_CPU_CASE = dict(n_cell=64, max_grid_size=32)
+PART_KEYS = ["Nsteps=51", "hRK=0.5"]
+PROD_SEEDS = (256, 510)            # the 130,052-node sphere MEF of phase 5b
+TOOLS8_NAMES = ["temp", "density", "x_velocity", "y_velocity", "z_velocity"]
+
+
+class Split:
+    """Within the block, the host-clock time the tools spend reading (the
+    plotfile load and the dense assembly with its copy to the card) and
+    writing (plotfile, Tecplot, StreamData, particle, image and slice text
+    writers), each call ending in a synchronize; the names are replaced
+    where the tools look them up.  ``take()`` returns the times since the
+    last take."""
+
+    READS = ("load_plotfile_fabs",)
+    WRITES = ("write_tecplot_lines", "write_part_file", "write_stream_data",
+              "write_plotfile", "write_dat_1d", "write_dat_2d", "write_ppm",
+              "savetxt_fast")
+
+    def __init__(self):
+        from peleanalysis_tpu_torch.amr import dense
+        from peleanalysis_tpu_torch.tools import (filter_plt, flatten_amr,
+                                                  integral, part_stream,
+                                                  rms_vel, turbulence_post,
+                                                  turbulence_spectra)
+        self.mods = [dense, filter_plt, flatten_amr, integral, part_stream,
+                     rms_vel, turbulence_post, turbulence_spectra]
+        self.t = {"read": 0.0, "write": 0.0}
+        self._depth = 0
+        self._saved = []
+
+    def _wrap(self, kind, fn):
+        def timed(*a, **k):
+            if self._depth:
+                return fn(*a, **k)
+            self._depth += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.t[kind] += time.perf_counter() - t0
+                self._depth -= 1
+        return timed
+
+    def __enter__(self):
+        for mod in self.mods:
+            for kind, names in (("read", self.READS), ("write", self.WRITES)):
+                for name in names:
+                    if hasattr(mod, name):
+                        real = getattr(mod, name)
+                        self._saved.append((mod, name, real))
+                        setattr(mod, name, self._wrap(kind, real))
+        assemble = DenseAmrState.__dict__["from_level_fabs"]
+        to_plotfile = DenseAmrState.to_plotfile
+        self._saved += [(DenseAmrState, "from_level_fabs", assemble),
+                        (DenseAmrState, "to_plotfile", to_plotfile)]
+        DenseAmrState.from_level_fabs = classmethod(self._wrap(
+            "read", assemble.__func__))
+        DenseAmrState.to_plotfile = self._wrap("write", to_plotfile)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in reversed(self._saved):
+            setattr(mod, name, real)
+        self._saved = []
+        return False
+
+    def take(self) -> dict:
+        out = {f"{k}_s": v for k, v in self.t.items()}
+        self.t = {"read": 0.0, "write": 0.0}
+        return out
+
+
+def tool_cost(tool: str, args, profile: bool) -> dict:
+    """One warm CLI run split into read, write and the rest (host clock,
+    each part ending in a synchronize; the rest is the device compute with
+    the host work between its launches), its peak device memory; with
+    ``profile``, one more run under torch.profiler (``kernel_profile``)
+    for the device time of its kernels, copies and memsets, the copies'
+    part, and whether the trace held the run whole."""
+    torch.cuda.reset_peak_memory_stats()
+    with Split() as split:
+        wall = run_wall(tool, args)
+    out = {"warm_s": wall, **split.take(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    out["compute_s"] = wall - out["read_s"] - out["write_s"]
+    if profile:
+        prof = kernel_profile(lambda: cli.main([tool, *args]))
+        out.update({k: prof[k] for k in ("device_ms", "copy_ms", "kernels",
+                                         "trace_whole")})
+    return out
+
+
+def close_plotfiles(a: str, b: str, rtol: float) -> float:
+    """Two plotfiles of the same layout, each component within rtol of its
+    largest value; returns the largest error over that value."""
+    ra, rb = PlotfileReader(a), PlotfileReader(b)
+    if ra.var_names != rb.var_names or ra.meta.n_levels != rb.meta.n_levels:
+        raise AssertionError(f"{a} and {b} differ in layout")
+    worst = 0.0
+    for lev in range(ra.meta.n_levels):
+        fa, fb = ra.read_level(lev), rb.read_level(lev)
+        for c in range(len(ra.var_names)):
+            x = np.concatenate([f[c].ravel() for f in fa])
+            y = np.concatenate([f[c].ravel() for f in fb])
+            err = float(np.abs(x - y).max()) / max(float(np.abs(y).max()),
+                                                   1e-300)
+            if not err <= rtol:
+                raise AssertionError(f"{a} vs {b}: {ra.var_names[c]} level "
+                                     f"{lev} {err} of its largest value")
+            worst = max(worst, err)
+    return worst
+
+
+def hit_checks(root: str, tag: str, n: int, spectra_base: str,
+               aug: str, avg_temp: float) -> dict:
+    """The closed forms of testing.hit_fields on an n^3 run: tseries
+    kin_energy_adim 0.5, magvort^2 with the centred difference's
+    (sin kh / kh)^2 at kh = 2 pi / n, divu^2 < 1e-12, <T'^2> = 50; the
+    slice's kin_energy line; the augmented plotfile's <|w|^2> and divu;
+    the spectrum's energy 0.75 all in shell 1 (Parseval); varfieldAverage's
+    mass-weighted temp ``avg_temp`` 300 (constant density)."""
+    lines = open(os.path.join(root, "tseries.csv")).read().splitlines()
+    vals = dict(zip(["tau"] + lines[0].split(",")[1:],
+                    map(float, lines[1].split(","))))
+    kh = 2 * np.pi / n
+    w2 = 3 * (2 * np.pi) ** 2 * 0.5 * (np.sin(kh) / kh) ** 2
+    errs = {"kin_energy_adim": abs(vals["kin_energy_avg_adim"] - 0.5),
+            "magvort_rel": abs(vals["magvort_sq_avg_adim"] - w2 / 4)
+            / (w2 / 4),
+            "divu_sq_adim": vals["divu_sq_avg_adim"],
+            "temp_var_adim": abs(vals["temp_var_sq_avg_adim"] - 50 / 1.44)}
+    if not (errs["kin_energy_adim"] < 1e-9 and errs["magvort_rel"] < 1e-9
+            and errs["divu_sq_adim"] < 1e-12
+            and errs["temp_var_adim"] < 1e-6):
+        raise AssertionError(f"HIT tseries off its closed forms: {errs}")
+    with open(os.path.join(root, f"{tag}_slice.dat")) as fh:
+        rows = [ln for ln in fh.read().splitlines()
+                if ln and not ln.startswith("#")][:n]
+    sl = np.array([[float(v) for v in ln.split()] for ln in rows])
+    x = sl[:, 0]
+    y = z = (n // 2 + 0.5) / n
+    ke = (np.sin(2 * np.pi * y) ** 2 + np.sin(2 * np.pi * z) ** 2
+          + np.sin(2 * np.pi * x) ** 2) / 3
+    errs["slice_kin_energy"] = float(np.abs(sl[:, 4] - ke).max())
+    r = PlotfileReader(aug)
+    f = np.concatenate([b.reshape(b.shape[0], -1) for b in r.read_level(0)],
+                       axis=1)
+    im, idv = r.var_names.index("magvort"), r.var_names.index("divu")
+    errs["aug_magvort_rel"] = abs(float((f[im] ** 2).mean()) - w2) / w2
+    errs["aug_divu"] = float(np.abs(f[idv]).max())
+    E = np.loadtxt(f"{spectra_base}_{tag}_spectrum.dat")[:, 1]
+    errs["spectrum_parseval"] = abs(float(E.sum()) - 0.75)
+    errs["spectrum_off_shell_1"] = float(E.sum() - E[1]) / float(E.sum())
+    errs["varfield_avg_temp"] = abs(avg_temp - 300.0)
+    if not (errs["slice_kin_energy"] < 1e-7 and errs["aug_magvort_rel"]
+            < 1e-9 and errs["aug_divu"] < 1e-12
+            and errs["spectrum_parseval"] < 1e-9
+            and errs["spectrum_off_shell_1"] < 1e-12
+            and errs["varfield_avg_temp"] < 1e-9):
+        raise AssertionError(f"HIT outputs off their closed forms: {errs}")
+    return errs
+
+
+def hit_runs(root: str, dev: str, base: str):
+    """The four turbulence_post verbs and turbulenceSpectra on a HIT run
+    directory (two plotfiles): (tool, args, expected launches) in order."""
+    plts = [os.path.join(root, p) for p in ("plt00000", "plt00001")]
+    d = [f"device={dev}"]
+    return [("turbulenceTseries", [f"root_dir={root}", *d], (6,)),
+            ("turbulenceSlice", [f"root_dir={root}", "plotfile=plt00001", *d],
+             (3,)),
+            ("augmentPlotfile", [f"infile={plts[1]}",
+                                 f"outfile={plts[1]}_aug", *d], (3,)),
+            ("varfieldAverage", [f"plotfile={plts[1]}", "var=temp", *d], ()),
+            ("turbulenceSpectra", [f"infile={' '.join(plts)}",
+                                   f"outfile_base={base}", *d], ())]
+
+
+def tools8_runs(plt: str, mef: str, tmp: str, dev: str) -> dict:
+    """The production runs of partStream, integral, rmsVel and filterPlt:
+    name -> (tool, args, expected launches)."""
+    d = [f"device={dev}"]
+    o = lambda name: os.path.join(tmp, f"t8_{name}")  # noqa: E731
+    integ = [f"infile={plt}", "vars=temp density", *d]
+    return {
+        "partStream_mef": ("partStream", [
+            f"infile={plt}", f"isoFile={mef}", *PART_KEYS,
+            f"outFile={o('ps.dat')}", f"streamFile={o('ps_sd')}",
+            f"partFile={o('ps_parts')}", *d], (0, 1, 1)),
+        "partStream_cells": ("partStream", [
+            f"infile={plt}", "oneSeedPerCell=1", "seedStride=64", *PART_KEYS,
+            f"outFile={o('cells.dat')}", *d], (0, 1, 1)),
+        "integral_1d_ppm": ("integral", [
+            *integ, "integralDimension=1", "dir=2", "format=ppm",
+            f"outfile_base={o('int1')}"], ()),
+        "integral_2d": ("integral", [
+            *integ, "integralDimension=2", "dir1=0", "dir2=1",
+            f"outfile_base={o('int2')}"], ()),
+        "integral_3d": ("integral", [
+            *integ, "integralDimension=3", f"outfile_base={o('int3')}"], ()),
+        "integral_3d_cVar": ("integral", [
+            *integ, "integralDimension=3", "cVar=temp", "cMin=500",
+            "cMax=1500", "avg=1", f"outfile_base={o('int3c')}"], ()),
+        "rmsVel": ("rmsVel", [f"infile={plt} {plt} {plt}",
+                              f"outfile={o('rms.dat')}", *d], ()),
+        "filterPlt_box": ("filterPlt", [
+            f"infile={plt}", "vars=temp density", "filter_type=box",
+            f"outfile={o('filt_box')}", *d], ()),
+        "filterPlt_gaussian": ("filterPlt", [
+            f"infile={plt}", "vars=temp density", "filter_type=gaussian",
+            f"outfile={o('filt_gauss')}", *d], ())}
+
+
+def tools8_card_vs_cpu(tmp: str, stream: dict, dev) -> dict:
+    """Each new verb on the card and with device=cpu at the repo case (and
+    the HIT tools on a 64^3 run): float64 plotfiles, lines, particle files
+    and tseries within 1e-12, the slice's %.9g text within 1e-8, the %e
+    text files (integral's three forms, rmsVel, the spectra and their
+    stats) within 1e-6 (their 7 digits), images within one level and
+    varfieldAverage's printed line equal; integrate_along, rms_velocity
+    and varfield_average on card and CPU states within 1e-12."""
+    from peleanalysis_tpu_torch.tools.integral import integrate_along
+    from peleanalysis_tpu_torch.tools.rms_vel import rms_velocity
+    from peleanalysis_tpu_torch.tools.turbulence_post import varfield_average
+    plt, mef = stream["plt"], stream["mef"]
+    out = {}
+    o = lambda who, name: os.path.join(tmp, f"cc_{who}_{name}")  # noqa
+    for who in ("card", "cpu"):
+        d = "cuda" if who == "card" else "cpu"
+        for tool, args in (
+                ("partStream", [f"infile={plt}", f"isoFile={mef}", *PART_KEYS,
+                                f"streamFile={o(who, 'sd')}",
+                                f"partFile={o(who, 'parts')}",
+                                f"outFile={o(who, 'ps.dat')}"]),
+                ("integral", [f"infile={plt}", "vars=temp density",
+                              "integralDimension=1", "dir=0", "format=ppm",
+                              "dtype=float64",
+                              f"outfile_base={o(who, 'int')}"]),
+                ("integral", [f"infile={plt}", "vars=temp density",
+                              "integralDimension=2", "dir1=0", "dir2=2",
+                              "avg=1", "dtype=float64",
+                              f"outfile_base={o(who, 'int2')}"]),
+                ("integral", [f"infile={plt}", "vars=temp density",
+                              "integralDimension=3", "cVar=progress",
+                              "cMin=0.1", "cMax=0.9", "dtype=float64",
+                              f"outfile_base={o(who, 'int3')}"]),
+                ("rmsVel", [f"infile={plt} {plt}", "dtype=float64",
+                            f"outfile={o(who, 'rms.dat')}"]),
+                ("filterPlt", [f"infile={plt}", "vars=temp density",
+                               "filter_type=gaussian", "dtype=float64",
+                               f"outfile={o(who, 'filt')}"]),
+                ("flattenAMRFile", [f"infile={plt}",
+                                    f"outfile={o(who, 'flat')}"])):
+            run_wall(tool, [*args, f"device={d}"])
+    pos = float(np.abs(read_stream_data(o("card", "sd")).lines
+                       - read_stream_data(o("cpu", "sd")).lines).max())
+    if not pos <= 1e-12:
+        raise AssertionError(f"partStream card vs CPU: {pos}")
+    out["partStream_max_pos_err"] = pos
+    (pa, ra, ia), (pb, rb, ib) = (read_particles(o(w, "parts"))
+                                  for w in ("card", "cpu"))
+    if list(ra) != list(rb) or list(ia) != list(ib) or pa.shape != pb.shape:
+        raise AssertionError("partStream particle files differ in layout")
+    perr = max([float(np.abs(pa - pb).max())]
+               + [float(np.abs(ra[k] - rb[k]).max()) for k in ra])
+    if not (perr <= 1e-12 and all(np.array_equal(ia[k], ib[k]) for k in ia)):
+        raise AssertionError(f"partStream particles card vs CPU: {perr}")
+    out["partFile_max_err"] = perr
+    out["integral_text"] = max(
+        compare_text_files(o("card", f), o("cpu", f), 1e-6)
+        for f in ("int_x.dat", "int_y.dat", "int3.dat", "int2_x.dat",
+                  "int2_temp.dat", "int2_density.dat"))
+    for n in ("temp", "density"):
+        a, b = (np.fromfile(o(w, f"int_{n}.ppm"), np.uint8)
+                for w in ("card", "cpu"))
+        if a.shape != b.shape or np.abs(a.astype(int) - b).max() > 1:
+            raise AssertionError(f"integral ppm {n}: card vs CPU")
+    out["rmsVel_text"] = compare_text_files(o("card", "rms.dat"),
+                                            o("cpu", "rms.dat"), 1e-6)
+    out["filterPlt"] = close_plotfiles(o("card", "filt"), o("cpu", "filt"),
+                                       1e-12)
+    out["flattenAMRFile"] = close_plotfiles(o("card", "flat"),
+                                            o("cpu", "flat"), 1e-12)
+    # the sums themselves, before the %e text
+    states = {w: DenseAmrState.from_plotfile(plt, w, names=TOOLS8_NAMES
+                                             + ["progress"],
+                                             dtype=torch.float64)
+              for w in (dev, "cpu")}
+    worst = 0.0
+    for dirs in ([0, 1, 2], [2], [0, 1]):
+        a, b = (integrate_along(states[w], ["temp", "density"], dirs,
+                                "progress", 0.1, 0.9, True)
+                for w in (dev, "cpu"))
+        for x, y in zip([a[1], *a[2]], [b[1], *b[2]]):
+            worst = max(worst, float(np.abs(x - y).max())
+                        / float(np.abs(y).max()))
+    r_card, r_cpu = (rms_velocity(states[w]) for w in (dev, "cpu"))
+    out["integrate_along_rel"] = worst
+    out["rms_velocity_rel"] = abs(r_card - r_cpu) / r_cpu
+    if not (worst <= 1e-12 and out["rms_velocity_rel"] <= 1e-12):
+        raise AssertionError(f"integral/rmsVel card vs CPU: {out}")
+    # the HIT tools on a 64^3 run, card then CPU
+    hit = {}
+    root = os.path.join(tmp, "hit_cpu")
+    os.makedirs(root)
+    write_hit_run(root, **HIT_CPU_CASE)
+    printed, avg = {}, {}
+    for who, d in (("card", "cuda"), ("cpu", "cpu")):
+        for tool, args, _ in hit_runs(root, d, o(who, "turb")):
+            if tool != "varfieldAverage":
+                run_wall(tool, args)
+                continue
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                run_wall(tool, args)
+            printed[who] = said.getvalue()
+            avg[who] = varfield_average(os.path.join(root, "plt00001"),
+                                        "temp", dev if who == "card" else d)
+        for f in ("tseries.csv", "plt00001_slice.dat"):
+            shutil.copy(os.path.join(root, f), o(who, f))
+        os.replace(os.path.join(root, "plt00001_aug"), o(who, "aug"))
+    for who in ("card", "cpu"):          # the csv's numbers as words
+        with open(o(who, "tseries.csv")) as fi, \
+                open(o(who, "tseries.txt"), "w") as fo:
+            fo.write(fi.read().replace(",", " "))
+    hit["tseries"] = compare_text_files(o("card", "tseries.txt"),
+                                        o("cpu", "tseries.txt"), 1e-12)
+    hit["slice"] = compare_text_files(o("card", "plt00001_slice.dat"),
+                                      o("cpu", "plt00001_slice.dat"), 1e-8)
+    hit["augment"] = close_plotfiles(o("card", "aug"), o("cpu", "aug"),
+                                     1e-12)
+    hit["spectrum"] = max(compare_text_files(
+        o("card", f"turb_plt0000{i}_spectrum.dat"),
+        o("cpu", f"turb_plt0000{i}_spectrum.dat"), 1e-6) for i in (0, 1))
+    hit["spectrum_stats"] = compare_text_files(o("card", "turb_stats.dat"),
+                                               o("cpu", "turb_stats.dat"),
+                                               1e-6)
+    hit["varfield_average_rel"] = abs(avg["card"] - avg["cpu"]) / avg["cpu"]
+    if not (hit["varfield_average_rel"] <= 1e-12
+            and printed["card"] == printed["cpu"]
+            and "Average temp" in printed["cpu"]):
+        raise AssertionError(f"varfieldAverage card vs CPU: {avg} {printed}")
+    hit["checks_64"] = hit_checks(root, "plt00001", HIT_CPU_CASE["n_cell"],
+                                  o("cpu", "turb"), o("cpu", "aug"),
+                                  avg["card"])
+    out["hit_64"] = hit
+    return out
+
+
+def phase_tools8(tmp: str, stream: dict, dev) -> dict:
+    """partStream, integral, rmsVel, filterPlt, flattenAMRFile and the
+    turbulence tools on the card at full size: launches counted (counts
+    set to 0 just before the cold runs, read just after), warm walls split
+    into read / compute / write with peak device memory and device time,
+    the closed forms of the HIT run, partStream against `stream
+    traceAlongV=1`, card against CPU, and grad_mag and the march held
+    against their plain versions at this phase's shapes."""
+    t0 = time.perf_counter()
+    plt = os.path.join(tmp, "plt_prod_tools")
+    f = default_fields()
+    bas = write_synthetic_plotfile(
+        plt, fields={n: f[n] for n in TOOLS8_NAMES}, **PROD_CASE)[1]
+    mef = os.path.join(tmp, "seeds_prod_tools.mef")
+    n_seeds = write_seed_mef(mef, *PROD_SEEDS)
+    root = os.path.join(tmp, "hit")
+    os.makedirs(root)
+    write_hit_run(root, **HIT_CASE)
+    gen_s = time.perf_counter() - t0
+    spectra = os.path.join(tmp, "t8_turb")
+    runs = tools8_runs(plt, mef, tmp, "cuda")
+    for tool, args, exp in hit_runs(root, "cuda", spectra):
+        runs[f"hit_{tool}"] = (tool, args, exp)
+    fin = os.path.join(tmp, "t8_flat")
+    runs["flattenAMRFile"] = ("flattenAMRFile", [
+        f"infile={stream['plt']}", f"outfile={fin}", "device=cuda"], ())
+    runs["turbulenceSpectra_prod"] = ("turbulenceSpectra", [
+        f"infile={plt}", f"outfile_base={os.path.join(tmp, 't8_prod')}",
+        "device=cuda"], ())
+    # this phase's runs: every count set to 0 just before, read just after
+    reset_counts()
+    cold = {k: run_tool_counted(*v) for k, v in runs.items()}
+    launches = counts()
+    tools = {}
+    for k, (tool, args, _) in runs.items():
+        first = k in ("partStream_mef", "partStream_cells", "integral_1d_ppm",
+                      "rmsVel", "filterPlt_box", "flattenAMRFile",
+                      "turbulenceSpectra_prod") or k.startswith("hit_")
+        tools[k] = {"cold_s": cold[k], **tool_cost(tool, args, first)}
+    # checks of the production outputs
+    lines = check_stream_data(os.path.join(tmp, "t8_ps_sd"), n_seeds,
+                              ["X", "Y", "Z"])
+    pos, reals, _ = read_particles(os.path.join(tmp, "t8_ps_parts"))
+    if not (np.array_equal(pos, lines[:, -1])
+            and np.array_equal(reals["path_050_z"], lines[:, 50, 2])):
+        raise AssertionError("particle file differs from the lines")
+    sd_v = os.path.join(tmp, "t8_stream_v")
+    run_wall("stream", [f"plotfile={plt}", "traceAlongV=1", f"isoFile={mef}",
+                        "nRKsteps=51", "hRK=0.5", f"streamFile={sd_v}"])
+    if not np.array_equal(lines, read_stream_data(sd_v).lines[..., :3]):
+        raise AssertionError("partStream lines differ from stream "
+                             "traceAlongV=1")
+    fin_cells = bas[-1].total_cells()
+    with open(os.path.join(tmp, "t8_cells.dat"), "rb") as fh:
+        zones = fh.read().count(b"ZONE ")
+    if zones != len(range(0, fin_cells, 64)):
+        raise AssertionError(f"oneSeedPerCell: {zones} lines")
+    n_fin = REPO_CASE["n_cell"] * 2 ** (REPO_CASE["n_levels"] - 1)
+    flat = PlotfileReader(fin)
+    if flat.meta.n_levels != 1 or flat.box_array(0).total_cells() != \
+            n_fin ** 3:
+        raise AssertionError("flattenAMRFile: not one level of the finest "
+                             "domain")
+    n_fin = PROD_CASE["n_cell"] * 2 ** (PROD_CASE["n_levels"] - 1)
+    sp = np.loadtxt(os.path.join(tmp, "t8_prod_plt_prod_tools_spectrum.dat"))
+    if not (len(sp) == n_fin // 2 + 1 and np.isfinite(sp).all()):
+        raise AssertionError("production spectrum: shape or non-finite")
+    from peleanalysis_tpu_torch.tools.turbulence_post import varfield_average
+    avg_temp = varfield_average(os.path.join(root, "plt00001"), "temp", dev)
+    checks = {"hit_256": hit_checks(root, "plt00001", HIT_CASE["n_cell"],
+                                    spectra,
+                                    os.path.join(root, "plt00001_aug"),
+                                    avg_temp),
+              "partStream_vs_stream_traceAlongV": "bitwise",
+              "oneSeedPerCell_lines": zones}
+    for name in ("rms.dat", "int3.dat", "int3c.dat"):
+        vals = np.loadtxt(os.path.join(tmp, "t8_" + name), ndmin=1)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{name}: non-finite")
+    for name in ("t8_filt_box", "t8_filt_gauss"):
+        r = PlotfileReader(os.path.join(tmp, name))
+        for lev in range(r.meta.n_levels):
+            if not all(np.isfinite(b).all() for b in r.read_level(lev)):
+                raise AssertionError(f"{name}: non-finite level {lev}")
+    # grad_mag and the march at this phase's shapes: the HIT slice's
+    # gradients (grown 258^3 float64) and the production partStream
+    with HeldAgainstPlain() as held:
+        for k in ("partStream_mef", "hit_turbulenceSlice"):
+            tool, args, _ = runs[k]
+            run_wall(tool, args)
+    for k in ("grad_mag", "stream_march", "stream_march_order_key"):
+        if held.seen[k]["calls"] == 0:
+            raise AssertionError(f"tools8 held no call of {k}")
+    for p in ("t8_ps.dat", "t8_cells.dat", "t8_ps_parts", "t8_filt_box",
+              "t8_filt_gauss", "t8_flat", "t8_stream_v"):
+        p = os.path.join(tmp, p)
+        shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
+    shutil.rmtree(root)
+    cmp = tools8_card_vs_cpu(tmp, stream, dev)
+    emit({"phase": "tools8", "cases": {
+        "production": PROD_CASE, "cells": sum(b.total_cells() for b in bas),
+        "seeds": n_seeds, "hit": HIT_CASE, "hit_cpu": HIT_CPU_CASE},
+        "generate_s": gen_s, "launches": launches, "tools": tools,
+        "checks": checks, "card_vs_cpu": cmp,
+        "kernels_vs_plain": {"tolerance": "as phases 3 and 3b",
+                             "calls": held.report()},
+        "seconds": time.perf_counter() - t0})
+    return launches, {k: v["max_abs_err"] for k, v in held.report().items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -2618,12 +3127,18 @@ def main() -> int:
         sparse, sparse_err = phase_sparse(tmp)
         sparse_err["grad_mag"] = max(sparse_err["grad_mag"],
                                      phase_sparse_scale(tmp, dev))
+        tools8, tools8_err = phase_tools8(tmp, stream, dev)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
-    # the kernels held at the sparse paths' shapes (phases 12 and 12b)
-    kern["max_abs_err"] = max(kern["max_abs_err"], sparse_err["grad_mag"])
+    # the kernels held at the sparse paths' shapes (phases 12 and 12b) and
+    # at the tools8 phase's (13)
+    kern["max_abs_err"] = max(kern["max_abs_err"], sparse_err["grad_mag"],
+                              tools8_err["grad_mag"])
     march["max_abs_err"] = max(march["max_abs_err"],
-                               sparse_err["stream_march"])
+                               sparse_err["stream_march"],
+                               tools8_err["stream_march"])
+    march["key"]["max_abs_err"] = max(march["key"]["max_abs_err"],
+                                      tools8_err["stream_march_order_key"])
     for k in ("binned", "joint"):
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"],
                                         sparse_err[f"stats_{k}"])
@@ -2634,6 +3149,7 @@ def main() -> int:
         "source": "peleanalysis_tpu_torch/csrc/grad_mag.cu",
         "replaces": "peleanalysis_tpu/ops/pallas_kernels.py:36",
         "launches": launches, "launches_sparse": sparse["grad_mag"],
+        "launches_tools8": tools8["grad_mag"],
         **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
@@ -2642,6 +3158,7 @@ def main() -> int:
         "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
         "launches": stream["launches"]["stream_march"],
         "launches_sparse": sparse["stream_march"],
+        "launches_tools8": tools8["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -2651,6 +3168,7 @@ def main() -> int:
         "replaces": "peleanalysis_tpu/stream/pallas_march.py:72",
         "launches": stream["launches"]["stream_march_order_key"],
         "launches_sparse": sparse["stream_march_order_key"],
+        "launches_tools8": tools8["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {

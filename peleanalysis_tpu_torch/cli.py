@@ -3,7 +3,10 @@ key=value... [inputs]``.
 
 The same ParmParse key surface as ``python -m peleanalysis_tpu``, for the
 tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
-``sampleStreamlines``, ``conditionalMean``, ``jpdf``).  Extra keys:
+``sampleStreamlines``, ``partStream``, ``conditionalMean``, ``jpdf``,
+``integral``, ``rmsVel``, ``filterPlt``, ``flattenAMRFile``,
+``turbulenceSpectra``, ``turbulenceTseries``, ``turbulenceSlice``,
+``augmentPlotfile``, ``varfieldAverage``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions) and the global ``dtype=float32|float64``.
 """
@@ -26,6 +29,16 @@ TOOLS = {
     "isosurface": ".tools.isosurface",
     "conditionalMean": ".tools.conditional_mean",
     "jpdf": ".tools.jpdf",
+    "partStream": ".tools.part_stream",
+    "integral": ".tools.integral",
+    "rmsVel": ".tools.rms_vel",
+    "filterPlt": ".tools.filter_plt",
+    "flattenAMRFile": ".tools.flatten_amr",
+    "turbulenceSpectra": ".tools.turbulence_spectra",
+    "turbulenceTseries": ".tools.turbulence_post",
+    "turbulenceSlice": ".tools.turbulence_post",
+    "augmentPlotfile": ".tools.turbulence_post",
+    "varfieldAverage": ".tools.turbulence_post",
 }
 
 

@@ -96,6 +96,19 @@ def joint_pdf(v1: torch.Tensor, v2: torch.Tensor, vol, mask: torch.Tensor,
     return b[0], b1[0], b2[0]
 
 
+def masked_sum(vals: torch.Tensor, mask: torch.Tensor,
+               weight) -> torch.Tensor:
+    """Sum of value*weight over the masked cells, in vals' dtype."""
+    return (torch.where(mask, vals, 0.0) * weight).sum()
+
+
+def directional_sum(vals: torch.Tensor, mask: torch.Tensor, weight,
+                    axes: Tuple[int, ...]) -> torch.Tensor:
+    """Sum value*weight over masked cells along the given spatial axes
+    (integral's integrate1d analog, Src/integral.cpp:13-60)."""
+    return (torch.where(mask, vals, 0.0) * weight).sum(dim=tuple(axes))
+
+
 def _scalar(x, dt, dev) -> torch.Tensor:
     if x is None:
         return torch.zeros((), dtype=dt, device=dev)

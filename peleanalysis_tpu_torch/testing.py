@@ -130,6 +130,40 @@ def write_synthetic_plotfile(
     return geoms, bas, ratios, names, data
 
 
+def hit_fields() -> Dict[str, Callable]:
+    """A periodic, solenoidal unit-sine velocity field with a cosine
+    temperature and a constant density (the HIT fields of
+    ``tests/test_turbulence_post.py``): <|u|^2> = 1.5, curl u =
+    -2pi(cos 2pi z, cos 2pi x, cos 2pi y), div u = 0, <T'^2> = 50, and all
+    the kinetic energy in the |k| = 1 shell of the unit box."""
+    return {
+        "x_velocity": lambda x, y, z: np.sin(2 * np.pi * y),
+        "y_velocity": lambda x, y, z: np.sin(2 * np.pi * z),
+        "z_velocity": lambda x, y, z: np.sin(2 * np.pi * x),
+        "temp": lambda x, y, z: 300.0 + 10 * np.cos(2 * np.pi * x),
+        "density": lambda x, y, z: 1.0 + 0 * x,
+    }
+
+
+def write_hit_run(root: str, n_cell: int = 16, max_grid_size: int = 16,
+                  times: Sequence[float] = (0.0, 0.1)) -> List[str]:
+    """A HIT run directory for the turbulence tools: one single-level
+    periodic plotfile ``plt%05d`` of ``hit_fields`` per time, and an
+    ``ic.txt`` of the nondimensionalization constants.  Returns the
+    plotfile paths."""
+    paths = []
+    for i, t in enumerate(times):
+        paths.append(f"{root}/plt{i:05d}")
+        write_synthetic_plotfile(paths[-1], n_cell=n_cell, n_levels=1,
+                                 max_grid_size=max_grid_size,
+                                 fields=hit_fields(), time=t,
+                                 is_periodic=(True, True, True))
+    with open(f"{root}/ic.txt", "w") as f:
+        f.write("urms0, lambda0, tau, T0, Mach, c_s0\n")
+        f.write("1.0, 0.5, 0.2, 300.0, 0.1, 340.0\n")
+    return paths
+
+
 def make_scattered_state(
     n0: int = 128,
     ratio: int = 4,

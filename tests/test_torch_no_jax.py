@@ -68,7 +68,10 @@ def test_every_port_module_imports_without_jax():
               "geom.marching_cubes", "geom.marching_squares", "io.xdmf",
               "tools.isosurface", "ops.restrict", "ops.solve", "ops.stats",
               "ops.stats_kernels", "tools.conditional_mean", "tools.jpdf",
-              "native", "io.fab_pack", "amr.cluster"):
+              "native", "io.fab_pack", "amr.cluster", "io.particles",
+              "tools.part_stream", "tools.integral", "tools.rms_vel",
+              "ops.filter", "tools.filter_plt", "tools.flatten_amr",
+              "tools.turbulence_spectra", "tools.turbulence_post"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -89,6 +92,12 @@ def test_cli_help_runs_without_jax():
     assert "stream" in res.stdout and "sampleStreamlines" in res.stdout
     assert "isosurface" in res.stdout
     assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
+    tools = res.stdout.split("tools:")[-1].split()
+    assert len(tools) == 17
+    for t in ("partStream", "integral", "rmsVel", "filterPlt",
+              "flattenAMRFile", "turbulenceSpectra", "turbulenceTseries",
+              "turbulenceSlice", "augmentPlotfile", "varfieldAverage"):
+        assert t in tools
 
 
 def test_isosurface_cli_runs_without_jax(tmp_path):
@@ -131,6 +140,34 @@ def test_stats_clis_run_without_jax(tmp_path):
                str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert "wrote cm.dat" in res.stdout and "jpdf done" in res.stdout
+
+
+def test_hit_clis_run_without_jax(tmp_path):
+    """partStream and the turbulence tools through the port's CLI on a
+    small HIT run, outputs read back."""
+    res = _run("import os, sys\n"
+               "import numpy as np\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.particles import "
+               "read_particles\n"
+               "from peleanalysis_tpu_torch.testing import write_hit_run\n"
+               "os.chdir(sys.argv[1])\n"
+               "plts = write_hit_run('.', n_cell=16, max_grid_size=8)\n"
+               "assert cli.main(['partStream', 'infile=' + plts[0], "
+               "'seedLoc=0.3 0.4 0.5', 'Nsteps=11', 'partFile=parts', "
+               "'device=cpu']) == 0\n"
+               "pos, reals, _ = read_particles('parts')\n"
+               "assert pos.shape == (1, 3) and len(reals) == 33\n"
+               "for tool in ('turbulenceTseries', 'turbulenceSlice'):\n"
+               "    assert cli.main([tool, 'root_dir=.', "
+               "'plotfile=plt00001', 'device=cpu']) == 0\n"
+               "assert cli.main(['turbulenceSpectra', 'infile=' + "
+               "' '.join(plts), 'device=cpu']) == 0\n"
+               "E = np.loadtxt('turb_plt00001_spectrum.dat')[:, 1]\n"
+               "assert abs(E.sum() - 0.75) < 1e-9\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "wrote ./tseries.csv" in res.stdout
 
 
 def test_native_library_is_the_ports_own(tmp_path):
