@@ -28,14 +28,20 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
   3c stats   - stats_hist kernel vs its plain versions on the card, float32
                and float64, at 1 M and at the production case's 19.4 M
                cells, a third of them on bin edges or one ulp from them:
-               binned moments with and without min/max (shared and global
-               variants), joint pdfs of 1 and 3 pairs at 64 (shared) and
-               256 (global) bins; hits equal, sums within 1e-4 (float32) /
-               1e-10 (float64) of the largest, min/max equal, binned sums
-               also against a tree-summed reference, one counted
-               launch a wrapper call; at 19.4 M cells the time of each
-               entry point, its plain version, its bytes bound,
-               torch.bincount and a chunked one-hot torch.matmul
+               binned moments with and without min/max (shared-memory
+               variant) and at 16384 bins (device memory), joint pdfs of 1
+               and 3 pairs at 64 (shared; float64 3 pairs in device
+               memory) and 256 (device) bins, at 1 M also per-cell
+               weights and fields one
+               cell off a 16-byte boundary; hits equal, sums within 1e-4
+               (float32) / 1e-10 (float64) of the largest, min/max equal,
+               binned sums also against a tree-summed reference, one
+               counted launch a wrapper call; at 19.4 M cells, in five
+               configurations (binned, with min/max, joint 1 pair, 3
+               pairs, 256 bins), the time of each entry point per call,
+               in a batch and on the device by kernel (torch.profiler),
+               its plain version, its bytes bound, torch.bincount and a
+               chunked one-hot torch.matmul
   4 main     - the repo's 3-level case (64^3 -> 120^3 finest patch) through
                `grad` and `curvature` (cli.main), cold then 3 warm runs;
                kernel launch counts, finiteness and the analytic gradient
@@ -86,8 +92,9 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                of 1, both kernels vs their plain versions level by level
                on the tools' state (the tolerances of 3c), read / compute /
                write, accumulate_stats_fused's CUDA-event time and its
-               device time by kernel
-               (torch.profiler); card vs CPU files on the repo case
+               device time by kernel (torch.profiler); at production the
+               five configurations of 3c on the tools' smooth levels
+               (kernel_times); card vs CPU files on the repo case
   11 host io - at production size, every level of the grad, stream and
                stats plotfiles read by the native loader (load_fabs) and
                box by box (read_box): bitwise equal, both timed, with the
@@ -1465,8 +1472,9 @@ STATS_BINS = 64
 # density ranges of testing.default_fields, as the JAX bench bins them
 STATS_RANGES = ((300.0, 1801.0), (-0.1, 1.1), (0.05, 1.3))
 # sums, of each output's largest value: a float32 kernel adds its terms
-# into per-block shared-memory bins (warp sums, pairwise) before its float64
-# reduction, where the plain version adds them all in float64; in float64
+# into per-block shared-memory bins (a thread's runs, a warp's sums) before
+# its float64 reduction, where the plain version adds them all in float64;
+# in float64
 # the plain version's index_add_ adds up to ~250 K terms a bin one after
 # another (n eps = 3e-11), and is the less exact of the two (tree_sums)
 STATS_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
@@ -1602,15 +1610,93 @@ def lib_joint(vals, w, mask, edges, nbins, pairs, shifts, onehot: bool):
     return out
 
 
+STATS_KERNELS = ("binned_kernel", "binned_device", "binned_finish",
+                 "joint_kernel", "joint_device", "joint_finish")
+
+
+def stats_device_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of fn, by stats kernel name and in all (the
+    histogram and finishing kernels, and whatever else fn launches), from
+    ``calls`` calls in one profiled window."""
+    prof = kernel_profile(lambda: [fn() for _ in range(calls)],
+                          STATS_KERNELS)
+    return {"device_ms": prof["device_ms"] / calls,
+            "kernels_a_call": prof["kernels"] / calls,
+            "by_kernel": {k: v / calls for k, v in
+                          prof["device_ms_of"].items() if v},
+            "trace_whole": prof["trace_whole"]}
+
+
 def stats_times(fn, plain, lib, onehot, nbytes, n=10) -> dict:
+    """ms: CUDA events around one call (the host's work before its launches
+    included); batch_ms: a call in a batch of 10; device_ms: the kernels'
+    device time (torch.profiler)."""
     ms = cuda_ms(fn, n=n)
     bound_ms, bound_by = bound(nbytes, 0.0, torch.float32)
-    return {"ms": ms, "plain_ms": cuda_ms(plain, n=3, warmup=1),
+    dev = stats_device_ms(fn)
+    return {"ms": ms, "batch_ms": batch_ms(fn), **dev,
+            "plain_ms": cuda_ms(plain, n=3, warmup=1),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "share_of_bound": bound_ms / ms,
-            "library_ms": cuda_ms(lib, n=n),
+            "share_of_bound_device": bound_ms / dev["device_ms"],
+            "library_ms": cuda_ms(lib, n=n) if lib is not None else None,
             "onehot_matmul_ms": cuda_ms(onehot, n=3, warmup=1)
             if onehot is not None else None}
+
+
+# the five configurations the stats kernel is timed in: binned moments of
+# one averaged component in 64 bins, the same with min/max, the joint pdf
+# of one pair in 64 bins, of three pairs, and of one pair in 256 bins
+STATS_CONFIGS = ("binned", "binned_minmax", "joint", "joint_3pairs",
+                 "joint_256")
+
+
+def stats_config_call(vals, mask, w, shift_b, shift_j, config: str):
+    """(entry, args, bytes read and written) of one configuration on one
+    level or flat array; vals = [binned / first variable, second, third],
+    shift_b [1], shift_j [3]."""
+    n = vals[0].numel()
+    T = vals[0].dtype
+    es = vals[0].element_size()
+    if config.startswith("binned"):
+        minmax = config == "binned_minmax"
+        e = stats_edges(STATS_BINS, T, True)[0]
+        args = (vals[0], vals[1][None], w, mask, e, STATS_BINS, False,
+                minmax, shift_b)
+        return "binned", args, ((2 * es + 1) * n
+                                + STATS_BINS * (3 + 2 * minmax) * es)
+    nbins = 256 if config == "joint_256" else STATS_BINS
+    pairs = [(0, 1), (0, 2), (1, 2)] if config == "joint_3pairs" \
+        else [(0, 1)]
+    nv = len({i for p in pairs for i in p})
+    edges = stats_edges(nbins, T, config != "joint_3pairs")
+    args = (vals, w, mask, edges, nbins, pairs, shift_j)
+    return "joint", args, (nv * es + 1) * n + 3 * len(pairs) * nbins ** 2 * es
+
+
+def stats_level_times(ds) -> dict:
+    """The five configurations on a tool state's levels (temp binned,
+    progress averaged; the tools' weights 8^-lev and masked-mean shifts),
+    one call being the levels' calls: per call, in a batch, device ms by
+    kernel, bytes bound and shares."""
+    levels = []
+    for lev, d in enumerate(ds.data):
+        vals = [d[ds.comp(n)] for n in ("temp", "progress", "density")]
+        m = ds.valid_mask(lev)
+        sh = torch.stack([v[m].mean() for v in vals])
+        levels.append((vals, m, 8.0 ** -lev, sh[1:2].clone(), sh))
+    out = {}
+    for config in STATS_CONFIGS:
+        calls = [stats_config_call(*lv, config) for lv in levels]
+        fn = sk.binned_moments if calls[0][0] == "binned" else sk.joint_hist
+        run = lambda: [fn(*a) for _, a, _ in calls]  # noqa: E731
+        nbytes = sum(b for _, _, b in calls)
+        bound_ms, _ = bound(nbytes, 0.0, torch.float32)
+        ms, bms, dev = cuda_ms(run, n=10), batch_ms(run), stats_device_ms(run)
+        out[config] = {"ms": ms, "batch_ms": bms, **dev, "bytes": nbytes,
+                       "bound_ms": bound_ms, "share_of_bound": bound_ms / ms,
+                       "share_of_bound_device": bound_ms / dev["device_ms"]}
+    return out
 
 
 def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
@@ -1622,8 +1708,8 @@ def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
     av = torch.stack([v1, v2])
     shift = torch.tensor([0.5, 0.7], dtype=dtype, device=dev)
     e0 = stats_edges(STATS_BINS, dtype, folded=True)[0]
-    # binned moments: shared variant with and without min/max, and the
-    # global variant (16384 bins do not fit in shared memory)
+    # binned moments: shared-memory variant with and without min/max, and
+    # the device-memory one (16384 bins do not fit in shared memory)
     for nbins, minmax in ((STATS_BINS, False), (STATS_BINS, True),
                           (16384, True)):
         e = e0 if nbins == STATS_BINS else sk.bin_transform(
@@ -1632,15 +1718,14 @@ def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
         k, p = sk.binned_moments(*args), sk.binned_moments_torch(*args)
         calls[0] += 1
         torch.cuda.synchronize()
-        shared = sk.binned_shared_bytes(nbins, 2, minmax, dtype) \
-            <= sk.max_shared_bytes()
+        plan = sk.binned_plan(v0, av, 8.0, mask, nbins, minmax)
         err, rel = check_stats(k, p, dtype,
                                f"binned {n} {dtype} {nbins} {minmax}")
         worst["binned"] = max(worst["binned"], err)
         cases.append({"entry": "binned", "cells": n,
                       "dtype": str(dtype)[6:], "nbins": nbins,
-                      "minmax": minmax,
-                      "variant": "shared" if shared else "global",
+                      "minmax": minmax, "variant": plan.variant,
+                      "threads": plan.threads, "vec": plan.vec,
                       "max_abs_err": err, "max_err_over_scale": rel,
                       "hits": int(float(p[0].sum()) / 8.0)})
         if nbins == STATS_BINS and not minmax:
@@ -1651,7 +1736,8 @@ def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
                                      f"{cases[-1]['kernel_vs_tree']} off "
                                      "the tree sums")
     # joint pdfs: 1 pair with the tools' folded single-pair edges, 3 pairs
-    # with joint_pdf_multi's divided ones; 64 bins (shared) and 256 (global)
+    # with joint_pdf_multi's divided ones; 64 bins (shared memory) and 256
+    # (device memory)
     for nbins in (STATS_BINS, 256):
         for pairs, folded in ((((0, 1),), True),
                               (((0, 1), (0, 2), (1, 2)), False)):
@@ -1662,17 +1748,47 @@ def check_stats_cases(fields, dtype, dev, worst, cases, calls) -> None:
             k, p = sk.joint_hist(*args), sk.joint_hist_torch(*args)
             calls[1] += 1
             torch.cuda.synchronize()
-            shared = sk.joint_shared_bytes(nbins, dtype) \
-                <= sk.max_shared_bytes()
+            plan = sk.joint_plan([v0, v1, v2], 2.0 ** -21, mask, nbins,
+                                 len(pairs))
             err, rel = check_stats(k, p, dtype,
                                    f"joint {n} {dtype} {nbins} {len(pairs)}")
             worst["joint"] = max(worst["joint"], err)
             cases.append({"entry": "joint", "cells": n,
                           "dtype": str(dtype)[6:], "nbins": nbins,
-                          "pairs": len(pairs),
-                          "variant": "shared" if shared else "global",
+                          "pairs": len(pairs), "variant": plan.variant,
+                          "threads": plan.threads, "vec": plan.vec,
                           "folded": folded, "max_abs_err": err,
                           "max_err_over_scale": rel})
+    if n > 1 << 20:
+        return
+    # the per-cell weight paths (multiples of 1/8, so that the hits, sums
+    # of weights, are exact in any order), and fields one cell off a
+    # 16-byte boundary (one cell a thread at a time), at 64 bins
+    cw = 0.125 * (1 + (v1 > 0.5).to(dtype) + 2 * (v2 > 0.6).to(dtype))
+    args = (v0, av, cw, mask, e0, STATS_BINS, True, True, shift)
+    check_stats(sk.binned_moments(*args), sk.binned_moments_torch(*args),
+                dtype, f"binned cell weight {n} {dtype}")
+    j_args = ([v0, v1, v2], cw, mask, stats_edges(STATS_BINS, dtype, False),
+              STATS_BINS, [(0, 1), (1, 2)], sh)
+    check_stats(sk.joint_hist(*j_args), sk.joint_hist_torch(*j_args), dtype,
+                f"joint cell weight {n} {dtype}")
+    u = [v[1:] for v in (v0, v1, v2)]
+    um = mask[1:]
+    ua = torch.stack([u[1], u[2]])
+    args = (u[0], ua, 8.0, um, e0, STATS_BINS, False, True, shift)
+    if sk.binned_plan(u[0], ua, 8.0, um, STATS_BINS, True).vec != 1:
+        raise AssertionError("an unaligned field took 16-byte loads")
+    check_stats(sk.binned_moments(*args), sk.binned_moments_torch(*args),
+                dtype, f"binned unaligned {n} {dtype}")
+    j_args = (u, 2.0 ** -21, um, stats_edges(STATS_BINS, dtype, True),
+              STATS_BINS, [(0, 1), (0, 2), (1, 2)], sh)
+    check_stats(sk.joint_hist(*j_args), sk.joint_hist_torch(*j_args), dtype,
+                f"joint unaligned {n} {dtype}")
+    calls[0] += 2
+    calls[1] += 2
+    cases.append({"entry": "both", "cells": n, "dtype": str(dtype)[6:],
+                  "cases": "per-cell weight; unaligned (vec 1)",
+                  "held": True})
 
 
 def phase_stats_kernel(dev) -> dict:
@@ -1710,10 +1826,10 @@ def phase_stats_kernel(dev) -> dict:
         lambda: lib_binned(v0, av, 8.0, mask, e0, STATS_BINS, shift, True),
         cell_b * PROD_CELLS)}
     mm_args = b_args[:7] + (True, shift)
-    times["binned_minmax"] = {
-        "ms": cuda_ms(lambda: sk.binned_moments(*mm_args), n=10),
-        "plain_ms": cuda_ms(lambda: sk.binned_moments_torch(*mm_args), n=3,
-                            warmup=1)}
+    times["binned_minmax"] = stats_times(
+        lambda: sk.binned_moments(*mm_args),
+        lambda: sk.binned_moments_torch(*mm_args), None, None,
+        cell_b * PROD_CELLS)
     sh = torch.tensor([1000.0, 0.5, 0.7], device=dev)
     for name, nbins, pairs, folded in (
             ("joint", STATS_BINS, [(0, 1)], True),
@@ -1740,16 +1856,17 @@ def phase_stats_kernel(dev) -> dict:
           "seconds": time.perf_counter() - t0, "cases": cases,
           "launches": {"binned": launched[0], "joint": launched[1]},
           "production_cells": PROD_CELLS,
-          "timing": "float32, CUDA events per call; library = "
+          "timing": "float32, CUDA events per call and per call in a "
+          "batch of 10, device ms by kernel (torch.profiler); library = "
           "torch.bincount(weights=) per accumulator with the bin index as "
           "torch ops; onehot = torch.matmul in 64K-cell chunks",
           "times": times})
     out = {}
     for key, tkey in (("binned", "binned"), ("joint", "joint")):
         t = times[tkey]
-        out[key] = {"max_abs_err": worst[key], "ms": t["ms"],
-                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+        out[key] = {"max_abs_err": worst[key], **{k: t[k] for k in (
+            "ms", "batch_ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}}
     return out
 
 
@@ -2080,9 +2197,10 @@ def phase_stats(tmp: str, dev):
                      "kernel_vs_plain": stats_levels_vs_plain(ds),
                      "layers": stats_split(plt, dev, tmp),
                      "stats_fused_ms": cuda_ms(fused, n=10),
+                     "kernel_times": stats_level_times(ds)
+                     if name == "production" else None,
                      "stats_fused_profile": kernel_profile(
-                         fused, ("binned_kernel", "binned_finish",
-                                 "joint_kernel", "joint_finish"))}
+                         fused, STATS_KERNELS)}
     # card vs CPU on the repo case, file against file
     plt = os.path.join(tmp, "plt_stats_repo")
     cpu_cm = os.path.join(tmp, "cm_repo_cpu.dat")

@@ -29,7 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` with the current flags lives."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    # the headers beside the sources count too: an edited header rebuilds
+    h = hashlib.sha256(b"".join(f.read_bytes() for f in
+                                [src, *sorted(CSRC.glob("*.h"))])
+                       + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
