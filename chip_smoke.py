@@ -4,7 +4,8 @@ fluxMatch=1), curvature (also do_smooth=1), stream, sampleStreamlines,
 isosurface, conditionalMean and jpdf tools through their CLI on
 synthetic 3-level hierarchies, time the main path (grad, curvature,
 isosurface), and drive partStream, integral, rmsVel, filterPlt,
-flattenAMRFile and the turbulence tools at full size.
+flattenAMRFile, the turbulence tools, the plotfile tools and
+buildDistance at full size.
 
     python3 chip_smoke.py
 
@@ -140,6 +141,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                CPU at the repo case (HIT at 64^3), and partStream and
                turbulenceSlice once more under HeldAgainstPlain (grad_mag
                at grown 258^3, the march at 260k lines)
+  14 tools84 - avgPlotfiles (pc and linear) over three production
+               hierarchies (phase 13's plotfile, refine_frac 0.25, two
+               levels), subPlt, combinePlts, regridPlt, template, plt2npz
+               (levels; flat to level 1) and npz2plt, fcompare and
+               fextrema, slicePlot, avgToPlane, interp at 1 M points,
+               amrToFE (flt; Tecplot at the repo case), doctor,
+               buildDistance (the 130,052-node sphere MEF)
+               and isosurface build_distance_function=1 at production
+               size: launches counted (none of the five kernels runs on
+               this path: the "launches_tools84" of the kernel summary),
+               warm walls split into read / compute / write with peak
+               device memory and device time, the outputs checked (the
+               ensemble's level 0 equal to the field, round trips bitwise,
+               the distances within one finest dx of |r - R| in the band
+               and of the right sign), buildDistance's layers split (band
+               seeding, sweeps as CUDA graphs and op by op, bitwise equal,
+               parity sign), and every verb card against CPU at the repo
+               case (the Tecplot text of amrToFE among them)
 The errors of 12, 12b and 13 go into the kernel summary's max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
@@ -1892,6 +1911,53 @@ def kernel_profile(fn, names=()) -> dict:
     return out
 
 
+def kernel_profiles(fns: dict) -> dict:
+    """``kernel_profile`` of each fn of ``fns`` from one torch.profiler
+    session, which saves each fn a session's start and stop (seconds): a
+    marker kernel before each fn and one after the last; a fn's device
+    events are those between its two markers.  A window that lost a
+    marker is taken again after a longer pause, then each fn is
+    profiled alone."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for pause in PROFILE_PAUSES_S:
+        walls = {}
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(pause)
+            for k, fn in fns.items():
+                torch.cuda._sleep(1000)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[k] = time.perf_counter() - t0
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pause)
+        dev = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.start_ns())
+        marks = [i for i, e in enumerate(dev) if "spin_kernel" in e.name()]
+        if len(marks) == len(fns) + 1:
+            break
+    else:
+        return {k: kernel_profile(fn) for k, fn in fns.items()}
+
+    def ms(evs) -> float:
+        return sum(e.end_ns() - e.start_ns() for e in evs) / 1e6
+
+    out = {}
+    for j, k in enumerate(fns):
+        evs = dev[marks[j] + 1: marks[j + 1]]
+        out[k] = {"wall_ms": walls[k] * 1e3, "device_ms": ms(evs),
+                  "copy_ms": ms(e for e in evs
+                                if e.name().startswith("Memcpy")),
+                  "kernels": sum(1 for e in evs if not e.name().startswith(
+                      ("Memcpy", "Memset"))),
+                  "trace_whole": True}
+    return out
+
+
 def solve_cost(plt: str, dev) -> dict:
     """The composite smoothing solve's part of a float32 curvature call:
     wall, device time, kernels and host waits with do_smooth=1 minus
@@ -2766,25 +2832,32 @@ TOOLS8_NAMES = ["temp", "density", "x_velocity", "y_velocity", "z_velocity"]
 
 class Split:
     """Within the block, the host-clock time the tools spend reading (the
-    plotfile load and the dense assembly with its copy to the card) and
-    writing (plotfile, Tecplot, StreamData, particle, image and slice text
-    writers), each call ending in a synchronize; the names are replaced
-    where the tools look them up.  ``take()`` returns the times since the
-    last take."""
+    plotfile load and the dense assembly with its copy to the card, MEF,
+    point and npz reads) and writing (plotfile packing and files, Tecplot,
+    StreamData, particle, image, FAB, npz, flt and text writers), each call
+    ending in a synchronize; the names are replaced where the tools look
+    them up.  ``take()`` returns the times since the last take."""
 
-    READS = ("load_plotfile_fabs",)
+    READS = ("load_plotfile_fabs", "read_points", "_level_values",
+             "read_mef", "read_npz")
     WRITES = ("write_tecplot_lines", "write_part_file", "write_stream_data",
               "write_plotfile", "write_dat_1d", "write_dat_2d", "write_ppm",
-              "savetxt_fast")
+              "write_pgm", "write_fab", "write_samples", "write_tec_febrick",
+              "write_flt", "write_mef", "savetxt_fast")
 
     def __init__(self):
         from peleanalysis_tpu_torch.amr import dense
-        from peleanalysis_tpu_torch.tools import (filter_plt, flatten_amr,
-                                                  integral, part_stream,
-                                                  rms_vel, turbulence_post,
-                                                  turbulence_spectra)
+        from peleanalysis_tpu_torch.tools import (
+            amr_to_fe, avg_plotfiles, avg_to_plane, build_distance,
+            combine_plts, compare_plts, filter_plt, flatten_amr, integral,
+            interp, isosurface, part_stream, plt2npz, regrid_plt, rms_vel,
+            slice_plot, sub_plt, template, turbulence_post,
+            turbulence_spectra)
         self.mods = [dense, filter_plt, flatten_amr, integral, part_stream,
-                     rms_vel, turbulence_post, turbulence_spectra]
+                     rms_vel, turbulence_post, turbulence_spectra, amr_to_fe,
+                     avg_plotfiles, avg_to_plane, build_distance,
+                     combine_plts, compare_plts, interp, isosurface,
+                     plt2npz, regrid_plt, slice_plot, sub_plt, template]
         self.t = {"read": 0.0, "write": 0.0}
         self._depth = 0
         self._saved = []
@@ -2813,12 +2886,18 @@ class Split:
                         self._saved.append((mod, name, real))
                         setattr(mod, name, self._wrap(kind, real))
         assemble = DenseAmrState.__dict__["from_level_fabs"]
-        to_plotfile = DenseAmrState.to_plotfile
-        self._saved += [(DenseAmrState, "from_level_fabs", assemble),
-                        (DenseAmrState, "to_plotfile", to_plotfile)]
+        self._saved.append((DenseAmrState, "from_level_fabs", assemble))
         DenseAmrState.from_level_fabs = classmethod(self._wrap(
             "read", assemble.__func__))
-        DenseAmrState.to_plotfile = self._wrap("write", to_plotfile)
+        # the plotfile writers (PlotfileRecords.add packs a part on the
+        # card and copies it to the host), the archives of plt2npz/npz2plt
+        for owner, name, kind in ((DenseAmrState, "to_plotfile", "write"),
+                                  (PlotfileRecords, "add", "write"),
+                                  (PlotfileRecords, "write", "write"),
+                                  (np, "savez_compressed", "write")):
+            real = getattr(owner, name)
+            self._saved.append((owner, name, real))
+            setattr(owner, name, self._wrap(kind, real))
         return self
 
     def __exit__(self, *exc):
@@ -2850,6 +2929,7 @@ def tool_cost(tool: str, args, profile: bool) -> dict:
         prof = kernel_profile(lambda: cli.main([tool, *args]))
         out.update({k: prof[k] for k in ("device_ms", "copy_ms", "kernels",
                                          "trace_whole")})
+        out["profiled_wall_ms"] = prof["wall_ms"]
     return out
 
 
@@ -3219,6 +3299,496 @@ def phase_tools8(tmp: str, stream: dict, dev) -> dict:
     return launches, {k: v["max_abs_err"] for k, v in held.report().items()}
 
 
+# -- phase 14 -------------------------------------------------------------------
+TOOLS84_EXTRA = (dict(refine_frac=0.25), dict(n_levels=2))
+INTERP_POINTS = 1_000_000
+
+
+def tools84_runs(plt, plt_q, plt_2l, mef, pts, repo, tmp) -> dict:
+    """The production runs of the plotfile tools and buildDistance, and
+    amrToFE's Tecplot text of the repo case ``repo``: name -> (tool, args),
+    on the card."""
+    d = ["device=cuda"]
+    o = lambda name: os.path.join(tmp, f"t84_{name}")  # noqa: E731
+    ens = f"infile={plt} {plt_q} {plt_2l}"
+    n = PROD_CASE["n_cell"]
+    n_fin = n * 2 ** (PROD_CASE["n_levels"] - 1)
+    return {
+        "avgPlotfiles_pc": ("avgPlotfiles", [ens, f"outfile={o('avg_pc')}",
+                                             *d]),
+        "avgPlotfiles_linear": ("avgPlotfiles", [
+            ens, "interp_type=2", f"outfile={o('avg_lin')}", *d]),
+        "subPlt": ("subPlt", [f"infile={plt}",
+                              f"box={' '.join([str(n // 4)] * 3)} "
+                              f"{' '.join([str(3 * n // 4 - 1)] * 3)}",
+                              "comps=temp density", f"outfile={o('sub')}",
+                              *d]),
+        "combinePlts": ("combinePlts", [
+            f"infile1={plt}", f"infile2={plt}", "comps1=temp density",
+            "comps2=x_velocity", f"outfile={o('comb')}", *d]),
+        "regridPlt": ("regridPlt", [f"infile={plt}", "max_grid_size=32",
+                                    f"outfile={o('rg')}", *d]),
+        "template": ("template", [f"infile={plt}", "vars=temp density",
+                                  f"outfile={o('tmpl')}", *d]),
+        "plt2npz_levels": ("plt2npz", [f"infile={plt}", "vars=temp",
+                                       f"outfile={o('lev.npz')}", *d]),
+        "plt2npz_flat": ("plt2npz", [f"infile={plt}", "vars=temp",
+                                     "mode=flat", "finestLevel=1",
+                                     f"outfile={o('flat.npz')}", *d]),
+        "npz2plt": ("npz2plt", [f"infile={o('flat.npz')}",
+                                f"outfile={o('rt')}", *d]),
+        "fcompare": ("fcompare", [f"infile1={plt}", f"infile2={o('tmpl')}",
+                                  "vars=temp density", *d]),
+        "fextrema": ("fextrema", [f"infile={plt}", *d]),
+        "slicePlot": ("slicePlot", [f"file={plt}", "varname=temp",
+                                    "slicedir=2", f"sliceloc={n_fin // 2}",
+                                    "outtype=image",
+                                    f"outfile={o('slice.ppm')}", *d]),
+        "avgToPlane": ("avgToPlane", [f"infile={plt}", "vars=temp density",
+                                      "dir=2", f"outfile_base={o('plane')}",
+                                      *d]),
+        "interp": ("interp", [f"infile={plt}", "vars=temp density",
+                              f"points={pts}", f"out={o('interp.dat')}",
+                              *d]),
+        "amrToFE_flt": ("amrToFE", [f"infile={plt}", "vars=temp",
+                                    "outType=flt", f"outfile={o('fe.flt')}",
+                                    *d]),
+        "amrToFE_tec_repo": ("amrToFE", [f"infile={repo}", "vars=temp",
+                                         f"outfile={o('fe.dat')}", *d]),
+        "buildDistance": ("buildDistance", [f"infile={plt}",
+                                            f"isoFile={mef}",
+                                            f"outfile={o('dist')}", *d]),
+        "isosurface_distance": ("isosurface", [
+            f"infile={plt}", f"isoVal={ISO_VAL}", "build_distance_function=1",
+            f"outfile_base={o('iso')}", f"outfile={o('iso_dist')}", *d])}
+
+
+def level_centres_r(meta, lev: int, bbox) -> np.ndarray:
+    """|x - (0.5, 0.5, 0.5)| at the cell centres of ``bbox`` on ``lev``."""
+    g = meta.geoms[lev]
+    cs = [g.prob_lo[d] + (np.arange(bbox.lo[d], bbox.hi[d] + 1)
+                          - g.domain.lo[d] + 0.5) * g.dx[d] for d in range(3)]
+    X, Y, Z = np.meshgrid(*cs, indexing="ij")
+    return np.sqrt((X - .5) ** 2 + (Y - .5) ** 2 + (Z - .5) ** 2)
+
+
+def distance_checks(path: str, radius: float, inside_sign: float) -> dict:
+    """A distance plotfile of a sphere of ``radius`` at the domain's
+    centre: |phi| within dmax everywhere, within one finest dx of |r - R|
+    in the unclamped band, and of sign ``inside_sign`` at the valid cells
+    more than a cell inside, the opposite more than a cell outside."""
+    ds = DenseAmrState.from_plotfile(path, "cpu", dtype=torch.float64)
+    fin = ds.meta.n_levels - 1
+    h = ds.meta.geoms[fin].dx[0]
+    dmax = float(max(np.abs(d[0].numpy()).max() for d in ds.data))
+    out = {"dmax": dmax, "finest_dx": h}
+    for lev in range(ds.meta.n_levels):
+        phi = ds.data[lev][0].numpy()
+        valid = ds.valid_mask_np(lev)
+        r = level_centres_r(ds.meta, lev, ds.lmeta[lev].bbox)
+        dx = ds.meta.geoms[lev].dx[0]
+        band = valid & (np.abs(r - radius) < dmax - dx)
+        err = float(np.abs(np.abs(phi[band]) - np.abs(r[band] - radius))
+                    .max(initial=0.0))
+        inside = valid & (r < radius - dx)
+        outside = valid & (r > radius + dx)
+        ok_sign = (bool((np.sign(phi[inside]) == inside_sign).all())
+                   and bool((np.sign(phi[outside]) == -inside_sign).all()))
+        if not (err <= h and ok_sign and np.isfinite(phi).all()):
+            raise AssertionError(f"{path} level {lev}: band error {err} "
+                                 f"(finest dx {h}), signs {ok_sign}")
+        out[f"level{lev}"] = {"band_cells": int(band.sum()),
+                              "band_max_err": err,
+                              "inside_cells": int(inside.sum())}
+    return out
+
+
+def tools84_checks(plt: str, tmp: str, mef_nodes: int, dev) -> dict:
+    """The production outputs against their sources and closed forms."""
+    o = lambda name: os.path.join(tmp, f"t84_{name}")  # noqa: E731
+    src = DenseAmrState.from_plotfile(plt, "cpu", names=["temp", "density"],
+                                      dtype=torch.float64)
+    out = {}
+    # the ensemble of three identical analytic fields: level 0, which every
+    # file has, averages to the field itself
+    for k in ("avg_pc", "avg_lin"):
+        avg = DenseAmrState.from_plotfile(o(k), "cpu", dtype=torch.float64)
+        if avg.meta.n_levels != 3 or avg.names != ["temp", "density"]:
+            raise AssertionError(f"{k}: {avg.meta.n_levels} levels "
+                                 f"{avg.names}")
+        err = max(float((avg.data[0][c] - src.data[0][src.comp(n)]).abs()
+                        .max() / src.data[0][src.comp(n)].abs().max())
+                  for c, n in enumerate(avg.names))
+        if not (err <= 1e-15 and all(torch.isfinite(d).all()
+                                     for d in avg.data)):
+            raise AssertionError(f"{k}: level 0 off the field by {err}")
+        out[k] = {"level0_rel_err": err, "cells": [
+            int(avg.in_level_mask_np(l).sum()) for l in range(3)]}
+    n = PROD_CASE["n_cell"]
+    n_fin = n * 2 ** (PROD_CASE["n_levels"] - 1)
+    sub = PlotfileReader(o("sub"))
+    if sub.meta.prob_domain[0].shape != (n // 2,) * 3:
+        raise AssertionError(f"subPlt domain {sub.meta.prob_domain[0]}")
+    rg, pr = PlotfileReader(o("rg")), PlotfileReader(plt)
+    if any(rg.box_array(l).total_cells() != pr.box_array(l).total_cells()
+           for l in range(3)) or max(max(b.shape) for l in range(3)
+                                     for b in rg.box_array(l)) > 32:
+        raise AssertionError("regridPlt: coverage or box size")
+    out["regridPlt_boxes"] = [len(rg.box_array(l)) for l in range(3)]
+    if PlotfileReader(o("comb")).var_names != ["temp", "density",
+                                               "x_velocity"]:
+        raise AssertionError("combinePlts: components")
+    z = np.load(o("flat.npz"))
+    rt = DenseAmrState.from_plotfile(o("rt"), "cpu", dtype=torch.float64)
+    if z["data"].shape != (1,) + (2 * n,) * 3 or not np.array_equal(
+            rt.data[0].numpy(), z["data"]):
+        raise AssertionError("plt2npz mode=flat -> npz2plt: not bitwise")
+    zl = np.load(o("lev.npz"))
+    if zl["lev2"].shape != (1,) + src.lmeta[2].bbox.shape:
+        raise AssertionError("plt2npz levels: lev2 shape")
+    img = open(o("slice.ppm"), "rb").read(16)
+    if not img.startswith(f"P6\n{n_fin} {n_fin}\n".encode()):
+        raise AssertionError(f"slicePlot header {img!r}")
+    with open(o("interp.dat"), "rb") as f:
+        head = f.readline()
+        rows = sum(1 for _ in f)
+    if head != b"# x y z temp density\n" or rows != INTERP_POINTS:
+        raise AssertionError(f"interp: {head!r} {rows} rows")
+    with open(o("fe.flt"), "rb") as f:
+        nz = int(np.fromfile(f, np.int32, 1)[0])
+        n0 = np.fromfile(f, np.int32, 3)
+    valid0 = int(src.valid_mask_np(0).sum())
+    if nz != 3 or n0[0] != valid0 or n0[1] != 4:
+        raise AssertionError(f"amrToFE flt header {nz} {n0}")
+    out["amrToFE_flt_bytes"] = os.path.getsize(o("fe.flt"))
+    with open(o("fe.dat")) as f:
+        head = [f.readline() for _ in range(2)]
+    if head[0] != "VARIABLES = X Y Z temp\n" or "ET=BRICK" not in head[1]:
+        raise AssertionError(f"amrToFE tec header {head}")
+    out["amrToFE_tec_repo_bytes"] = os.path.getsize(o("fe.dat"))
+    out["buildDistance"] = distance_checks(o("dist"), STREAM_R, -1.0)
+    out["buildDistance"]["mef_nodes"] = mef_nodes
+    out["isosurface_distance"] = distance_checks(o("iso_dist"), ISO_R, 1.0)
+    return out
+
+
+def tools84_card_vs_cpu(tmp: str, stream: dict) -> dict:
+    """Each verb on the card and with device=cpu at the repo case (plt2npz
+    mode=flat to level 1, the distance verbs on level 0): the copies byte
+    for byte, float64 plotfiles within 1e-12, npz arrays equal,
+    fcompare/fextrema printouts equal, images within one level, amrToFE's
+    Tecplot text and flt tables byte for byte, the samples within 1e-12,
+    and the distances within 1e-6 dmax but at near ties of the band (at
+    most 2% of the cells, within 0.02 dmax), their signs equal where
+    |phi| > 1e-6 dx."""
+    plt, mef = stream["plt"], stream["mef"]
+    plt_q = os.path.join(tmp, "plt_repo_q")
+    write_synthetic_plotfile(plt_q, **{**REPO_CASE, "refine_frac": 0.25})
+    pts = os.path.join(tmp, "pts_repo.xyz")
+    rng = np.random.default_rng(5)
+    with open(pts, "wb") as f:
+        native.savetxt_fast(f, rng.uniform(-0.02, 1.02, (20000, 3)),
+                            "%.17g")
+    o = lambda who, name: os.path.join(tmp, f"cc84_{who}_{name}")  # noqa
+    printed, walls = {}, {}
+    for who in ("card", "cpu"):
+        d = "cuda" if who == "card" else "cpu"
+        runs = [
+            ("avgPlotfiles", [f"infile={plt} {plt_q}", "interp_type=2",
+                              f"outfile={o(who, 'avg')}"]),
+            ("subPlt", [f"infile={plt}", "box=8 8 8 50 40 30",
+                        f"outfile={o(who, 'sub')}"]),
+            ("combinePlts", [f"infile1={plt}", f"infile2={plt}",
+                             "comps1=temp", f"outfile={o(who, 'comb')}"]),
+            ("regridPlt", [f"infile={plt}", "max_grid_size=16",
+                           f"outfile={o(who, 'rg')}"]),
+            ("template", [f"infile={plt}", f"outfile={o(who, 'tmpl')}"]),
+            ("plt2npz", [f"infile={plt}", "vars=temp density",
+                         f"outfile={o(who, 'lev.npz')}"]),
+            ("plt2npz", [f"infile={plt}", "mode=flat", "vars=temp density",
+                         "finestLevel=1", f"outfile={o(who, 'flat.npz')}"]),
+            ("npz2plt", [f"infile={o('card', 'flat.npz')}",
+                         f"outfile={o(who, 'rt')}"]),
+            ("slicePlot", [f"file={plt}", "varname=temp", "slicedir=1",
+                           "sliceloc=100", "outtype=fab", "dtype=float64",
+                           f"outfile={o(who, 'slice.fab')}"]),
+            ("slicePlot", [f"file={plt}", "varname=temp", "slicedir=1",
+                           "sliceloc=100", f"outfile={o(who, 'slice.ppm')}"]),
+            ("avgToPlane", [f"infile={plt}", "vars=temp density", "dir=0",
+                            "dtype=float64", "format=dat",
+                            f"outfile_base={o(who, 'plane')}"]),
+            ("interp", [f"infile={plt}", "vars=temp density", "dtype=float64",
+                        f"points={pts}", f"out={o(who, 'interp.dat')}"]),
+            ("amrToFE", [f"infile={plt}", "vars=temp density",
+                         f"outfile={o(who, 'fe.dat')}"]),
+            ("amrToFE", [f"infile={plt}", "vars=temp", "connect_cc=0",
+                         "outType=flt", f"outfile={o(who, 'fec.flt')}"]),
+            ("buildDistance", [f"infile={plt}", f"isoFile={mef}",
+                               "finestLevel=0", "dtype=float64",
+                               f"outfile={o(who, 'dist')}"]),
+            ("isosurface", [f"infile={plt}", f"isoVal={ISO_VAL}",
+                            "finestLevel=0", "build_distance_function=1",
+                            "dtype=float64",
+                            f"outfile_base={o(who, 'iso')}",
+                            f"outfile={o(who, 'iso_dist')}"])]
+        for tool, args in runs:
+            walls[f"{who} {tool} {args[-1].split('_', 2)[-1]}"] = run_wall(
+                tool, [*args, f"device={d}"])
+        # fcompare: this device's regrid against the card's
+        for tool, args in (("fcompare", [f"infile1={o(who, 'rg')}",
+                                         f"infile2={o('card', 'rg')}"]),
+                           ("fextrema", [f"infile={plt}"])):
+            with contextlib.redirect_stdout(io.StringIO()) as said:
+                run_wall(tool, [*args, f"device={d}"])
+            printed[(tool, who)] = said.getvalue()
+    out = {}
+    for k in ("sub", "comb", "rg", "tmpl", "rt"):
+        same_tree(o("card", k), o("cpu", k))
+    out["copies_bitwise"] = ["subPlt", "combinePlts", "regridPlt",
+                             "template", "npz2plt"]
+    out["avgPlotfiles"] = close_plotfiles(o("card", "avg"), o("cpu", "avg"),
+                                          1e-12)
+    for k in ("lev.npz", "flat.npz"):
+        za, zb = np.load(o("card", k)), np.load(o("cpu", k))
+        if sorted(za.files) != sorted(zb.files) or not all(
+                np.array_equal(za[f], zb[f]) for f in za.files):
+            raise AssertionError(f"plt2npz {k}: card vs CPU")
+    out["plt2npz"] = "equal"
+    for tool in ("fcompare", "fextrema"):
+        if printed[(tool, "card")] != printed[(tool, "cpu")]:
+            raise AssertionError(f"{tool} printouts differ")
+    if "PLOTFILES AGREE" not in printed[("fcompare", "card")]:
+        raise AssertionError("fcompare of equal regrids")
+    out["fcompare_fextrema_printouts"] = "equal"
+    from peleanalysis_tpu_torch.io.fab import read_fab
+    with open(o("card", "slice.fab"), "rb") as fa, \
+            open(o("cpu", "slice.fab"), "rb") as fb:
+        (_, a), (_, b) = read_fab(fa), read_fab(fb)
+    out["slicePlot_fab"] = float(np.abs(a - b).max() / np.abs(b).max())
+    a, b = (np.fromfile(o(w, "slice.ppm"), np.uint8) for w in ("card",
+                                                              "cpu"))
+    if a.shape != b.shape or np.abs(a.astype(int) - b).max() > 1 \
+            or not out["slicePlot_fab"] <= 1e-12:
+        raise AssertionError("slicePlot card vs CPU")
+    out["avgToPlane"] = max(compare_text_files(
+        o("card", f"plane_{n}.dat"), o("cpu", f"plane_{n}.dat"), 1e-12)
+        for n in ("temp", "density"))
+    out["interp"] = compare_text_files(o("card", "interp.dat"),
+                                       o("cpu", "interp.dat"), 1e-12)
+    # the same float64 node values on both: the files byte for byte
+    for k in ("fe.dat", "fec.flt"):
+        if not filecmp.cmp(o("card", k), o("cpu", k), shallow=False):
+            raise AssertionError(f"amrToFE {k} card vs CPU")
+    out["amrToFE_tec_and_flt"] = "byte-equal"
+    for k in ("dist", "iso_dist"):
+        out[k] = close_distances(o("card", k), o("cpu", k))
+    out["walls_s"] = walls
+    return out
+
+
+def close_distances(a: str, b: str) -> dict:
+    """Two distance plotfiles of one hierarchy: |phi| within 1e-6 dmax but
+    at most 2% of the cells (near ties of the band that carried another
+    triangle through the sweeps), those within 0.02 dmax; the signs equal
+    where |phi| > 1e-6 dx."""
+    ra, rb = PlotfileReader(a), PlotfileReader(b)
+    out = {"off_cells": 0, "cells": 0, "max_err_over_dmax": 0.0}
+    for lev in range(rb.meta.n_levels):
+        x = np.concatenate([f.ravel() for f in ra.read_level(lev)])
+        y = np.concatenate([f.ravel() for f in rb.read_level(lev)])
+        dmax = float(np.abs(y).max())
+        err = np.abs(np.abs(x) - np.abs(y))
+        far = np.abs(y) > 1e-6 * rb.meta.geometry(lev).dx[0]
+        out["off_cells"] += int((err > 1e-6 * dmax).sum())
+        out["cells"] += len(y)
+        out["max_err_over_dmax"] = max(out["max_err_over_dmax"],
+                                       float(err.max()) / dmax)
+        if not (err.max() <= 0.02 * dmax
+                and np.array_equal(np.sign(x[far]), np.sign(y[far]))):
+            raise AssertionError(f"{a} vs {b} level {lev}: {out}")
+    if out["off_cells"] > 0.02 * out["cells"]:
+        raise AssertionError(f"{a} vs {b}: {out}")
+    return out
+
+
+def sdf_split(plt: str, mef_path: str, dev) -> dict:
+    """buildDistance's layers on every production level (float32 seeding,
+    dmax 4 finest dx, the parity sign), each step ending in a synchronize:
+    the band seeding and the parity sign by host clock and profiler device
+    time (profiled on levels 0 and 2; level 1, windowed alike, takes level
+    0's), the sweeps (their plane step replayed as CUDA graphs) by host
+    clock and CUDA events, which the replays keep busy.  Their sum is the
+    verb's distance work on the card: a trace of the whole verb holds ~0.76
+    M kernels of the graphs and loses events.  On level 0 the sweeps
+    replayed as graphs and launched op by op are held bitwise equal."""
+    from peleanalysis_tpu_torch.geom import sdf
+    ds = DenseAmrState.from_plotfile(plt, dev, names=["temp"],
+                                     dtype=torch.float64)
+    m = read_mef(mef_path)
+    tri_v = m.positions()[m.elements]
+    tri = torch.from_numpy(tri_v).to(dev)
+    fin = ds.meta.n_levels - 1
+    dmax = 4.0 * ds.meta.geoms[fin].dx[0]
+
+    def grid(lev):
+        geom, bbox = ds.meta.geoms[lev], ds.lmeta[lev].bbox
+        dx = np.array(geom.dx)
+        return (np.array(geom.prob_lo) + (np.array(bbox.lo)
+                                          - np.array(geom.domain.lo)) * dx,
+                dx, bbox.shape)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    seed = lambda o, d, s: sdf.band_seed(tri_v, tri, o, d, s, dmax)  # noqa
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out = {"triangles": len(tri_v), "dmax": dmax}
+    total = {"host_s": 0.0, "device_ms": 0.0}
+    dev_ms = {}
+    for lev in range(ds.meta.n_levels):
+        origin, dx, shape = grid(lev)
+        o = {"cells": int(np.prod(shape)),
+             "reach": [b.stop - b.start for b in sdf._reach(
+                 tri_v, origin, dx, shape, dmax)]}
+        (phi0, cl0), o["band_seed_s"] = timed(lambda: seed(origin, dx,
+                                                           shape))
+        _, o["parity_sign_s"] = timed(lambda: sdf.parity_sign(
+            tri_v, origin, dx, shape, dev))
+        # both windowed like the finest level: profiled there only
+        if lev == fin or lev == 0:
+            prof = kernel_profile(lambda: seed(origin, dx, shape))
+            dev_ms = {"band_seed": prof["device_ms"]}
+            o["band_seed_kernels"] = prof["kernels"]
+            prof = kernel_profile(lambda: sdf.parity_sign(
+                tri_v, origin, dx, shape, dev))
+            dev_ms["parity_sign"] = prof["device_ms"]
+        for k, v in dev_ms.items():
+            o[f"{k}_device_ms"] = v
+        phi, cl = phi0.clone(), cl0.clone()
+        ev[0].record()
+        o["rounds"], o["sweep_s"] = timed(lambda: sdf.sweep_reach(
+            tri_v, tri, phi, cl, origin, dx, dmax))
+        ev[1].record()
+        torch.cuda.synchronize()
+        o["sweep_event_ms"] = ev[0].elapsed_time(ev[1])
+        total["host_s"] += o["band_seed_s"] + o["parity_sign_s"] \
+            + o["sweep_s"]
+        total["device_ms"] += o["band_seed_device_ms"] \
+            + o["parity_sign_device_ms"] + o["sweep_event_ms"]
+        out[f"level{lev}"] = o
+    out["total"] = total
+    # level 0: graph replays against the same steps launched op by op
+    origin, dx, shape = grid(0)
+    phi0, cl0 = seed(origin, dx, shape)
+    res = {}
+    for graphs in (True, False):
+        phi, cl = phi0.clone(), cl0.clone()
+        _, sec = timed(lambda: sdf.sweep_reach(tri_v, tri, phi, cl, origin,
+                                               dx, dmax, graphs))
+        key = "graphs" if graphs else "op_by_op"
+        out[f"level0_sweep_{key}_s"] = sec
+        res[key] = (phi, cl)
+    if not (torch.equal(res["graphs"][0], res["op_by_op"][0])
+            and torch.equal(res["graphs"][1], res["op_by_op"][1])):
+        raise AssertionError("sweeps: graph replays differ from the ops")
+    out["level0_graphs_vs_op_by_op"] = "bitwise"
+    return out
+
+
+def phase_tools84(tmp: str, stream: dict, dev) -> dict:
+    """The plotfile tools and buildDistance on the card at full size (the
+    5-component plotfile of phase 13, two more hierarchies for the
+    ensemble average, 1 M interp points, the 130,052-node sphere MEF):
+    launches counted (counts set to 0 just before the cold runs, read just
+    after: none of the five kernels runs on this path), warm walls split
+    into read / compute / write with peak device memory and device time,
+    the outputs checked, and every verb card against CPU at the repo
+    case."""
+    t0 = time.perf_counter()
+    plt = os.path.join(tmp, "plt_prod_tools")
+    mef = os.path.join(tmp, "seeds_prod_tools.mef")
+    if not os.path.exists(plt):          # phase 13 writes both
+        f = default_fields()
+        write_synthetic_plotfile(
+            plt, fields={n: f[n] for n in TOOLS8_NAMES}, **PROD_CASE)
+    n_seeds = write_seed_mef(mef, *PROD_SEEDS)
+    f = default_fields()
+    extra = []
+    for i, kw in enumerate(TOOLS84_EXTRA):
+        extra.append(os.path.join(tmp, f"plt_prod_84_{i}"))
+        write_synthetic_plotfile(extra[-1], fields={
+            n: f[n] for n in ("temp", "density")}, **{**PROD_CASE, **kw})
+    pts = os.path.join(tmp, "pts_prod.xyz")
+    rng = np.random.default_rng(4)
+    with open(pts, "wb") as fh:
+        native.savetxt_fast(fh, rng.uniform(0.0, 1.0, (INTERP_POINTS, 3)),
+                            "%.17g")
+    gen_s = time.perf_counter() - t0
+    runs = tools84_runs(plt, *extra, mef, pts, stream["plt"], tmp)
+    steps = {"generate_s": gen_s}
+    t1 = time.perf_counter()
+    reset_counts()
+    cold = {}
+    for k, (tool, args) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            cold[k] = run_tool_counted(tool, args, ())
+        if k == "fcompare" and "PLOTFILES AGREE" not in said.getvalue():
+            raise AssertionError("fcompare of the template copy")
+    launches = counts()
+    steps["cold_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tools = {}
+    for k, (tool, args) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            tools[k] = {"cold_s": cold[k], **tool_cost(tool, args, False)}
+    steps["warm_s"] = time.perf_counter() - t1
+    # device time in one profiler session; the distance verbs' comes from
+    # sdf_split, layer by layer (a trace of either holds ~0.76 M kernels
+    # of the sweeps' graphs and loses events)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        profs = kernel_profiles({
+            k: (lambda a=args, t=tool: cli.main([t, *a]))
+            for k, (tool, args) in runs.items()
+            if k not in ("buildDistance", "isosurface_distance")})
+    for k, prof in profs.items():
+        tools[k].update({f: prof[f] for f in ("device_ms", "copy_ms",
+                                              "kernels", "trace_whole")})
+        tools[k]["profiled_wall_ms"] = prof["wall_ms"]
+    steps["profile_s"] = time.perf_counter() - t1
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        run_wall("doctor", [])
+    doctor = said.getvalue().splitlines()
+    if not (any(ln.strip().startswith("card:") and "W" in ln
+                for ln in doctor)
+            and all(any(f"kernel {k}: OK" in ln for ln in doctor)
+                    for k in ("grad_mag", "stream_march", "stats_hist"))):
+        raise AssertionError(f"doctor: {doctor}")
+    t1 = time.perf_counter()
+    checks = tools84_checks(plt, tmp, n_seeds, dev)
+    split = sdf_split(plt, mef, dev)
+    steps["checks_and_split_s"] = time.perf_counter() - t1
+    for p in os.listdir(tmp):
+        if p.startswith("t84_"):
+            p = os.path.join(tmp, p)
+            shutil.rmtree(p) if os.path.isdir(p) else os.remove(p)
+    t1 = time.perf_counter()
+    cmp = tools84_card_vs_cpu(tmp, stream)
+    steps["card_vs_cpu_s"] = time.perf_counter() - t1
+    emit({"phase": "tools84", "cases": {
+        "production": PROD_CASE, "ensemble": TOOLS84_EXTRA,
+        "interp_points": INTERP_POINTS, "mef_nodes": n_seeds},
+        "steps": steps, "launches": launches, "tools": tools,
+        "doctor": doctor, "checks": checks, "sdf_split": split,
+        "card_vs_cpu": cmp,
+        "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -3246,6 +3816,7 @@ def main() -> int:
         sparse_err["grad_mag"] = max(sparse_err["grad_mag"],
                                      phase_sparse_scale(tmp, dev))
         tools8, tools8_err = phase_tools8(tmp, stream, dev)
+        tools84 = phase_tools84(tmp, stream, dev)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     # the kernels held at the sparse paths' shapes (phases 12 and 12b) and
@@ -3268,6 +3839,7 @@ def main() -> int:
         "replaces": "peleanalysis_tpu/ops/pallas_kernels.py:36",
         "launches": launches, "launches_sparse": sparse["grad_mag"],
         "launches_tools8": tools8["grad_mag"],
+        "launches_tools84": tools84["grad_mag"],
         **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
@@ -3277,6 +3849,7 @@ def main() -> int:
         "launches": stream["launches"]["stream_march"],
         "launches_sparse": sparse["stream_march"],
         "launches_tools8": tools8["stream_march"],
+        "launches_tools84": tools84["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -3287,6 +3860,7 @@ def main() -> int:
         "launches": stream["launches"]["stream_march_order_key"],
         "launches_sparse": sparse["stream_march_order_key"],
         "launches_tools8": tools8["stream_march_order_key"],
+        "launches_tools84": tools84["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -3295,13 +3869,15 @@ def main() -> int:
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
         "replaces": "peleanalysis_tpu/ops/stats.py:30",
         "launches": stats_launches["stats_binned"],
-        "launches_sparse": sparse["stats_binned"], **stats_k["binned"]}, {
+        "launches_sparse": sparse["stats_binned"],
+        "launches_tools84": tools84["stats_binned"], **stats_k["binned"]}, {
         # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
         "name": "stats_joint", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
         "replaces": "peleanalysis_tpu/ops/stats.py:184",
         "launches": stats_launches["stats_joint"],
-        "launches_sparse": sparse["stats_joint"], **stats_k["joint"]}]})
+        "launches_sparse": sparse["stats_joint"],
+        "launches_tools84": tools84["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,9 +6,13 @@ tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
 ``sampleStreamlines``, ``partStream``, ``conditionalMean``, ``jpdf``,
 ``integral``, ``rmsVel``, ``filterPlt``, ``flattenAMRFile``,
 ``turbulenceSpectra``, ``turbulenceTseries``, ``turbulenceSlice``,
-``augmentPlotfile``, ``varfieldAverage``).  Extra keys:
+``augmentPlotfile``, ``varfieldAverage``, ``avgPlotfiles``,
+``combinePlts``, ``subPlt``, ``regridPlt``, ``avgToPlane``, ``slicePlot``,
+``amrToFE``, ``interp``, ``plt2npz``, ``npz2plt``, ``fcompare``,
+``fextrema``, ``template``, ``doctor``, ``buildDistance``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
-PyTorch versions) and the global ``dtype=float32|float64``.
+PyTorch versions; ``doctor`` takes none and reports what is there) and the
+global ``dtype=float32|float64``.
 """
 from __future__ import annotations
 
@@ -39,6 +43,21 @@ TOOLS = {
     "turbulenceSlice": ".tools.turbulence_post",
     "augmentPlotfile": ".tools.turbulence_post",
     "varfieldAverage": ".tools.turbulence_post",
+    "avgPlotfiles": ".tools.avg_plotfiles",
+    "combinePlts": ".tools.combine_plts",
+    "subPlt": ".tools.sub_plt",
+    "regridPlt": ".tools.regrid_plt",
+    "avgToPlane": ".tools.avg_to_plane",
+    "slicePlot": ".tools.slice_plot",
+    "amrToFE": ".tools.amr_to_fe",
+    "interp": ".tools.interp",
+    "plt2npz": ".tools.plt2npz",
+    "npz2plt": ".tools.plt2npz",
+    "fcompare": ".tools.compare_plts",
+    "fextrema": ".tools.compare_plts",
+    "template": ".tools.template",
+    "doctor": ".tools.doctor",
+    "buildDistance": ".tools.build_distance",
 }
 
 

@@ -11,7 +11,9 @@ more than one level whose finest union bbox wastes >4x its cells, or any
 such hierarchy with ``surface_is_large=1``, takes the clustered path
 (``extract_isosurface_sparse``; JAX :71-74): ``surface_is_large`` is the
 reference's disk-staged memory valve (isosurface.cpp:1919-1998), and the
-clustered path is the valve here.
+clustered path is the valve here.  ``build_distance_function=1`` also
+writes the signed distance to the surface on every level (``geom/sdf.py``,
+dense 3-D path only).
 """
 from __future__ import annotations
 
@@ -30,17 +32,8 @@ from ..io.mef import write_mef, write_mef_tecplot
 from ..io.plotfile import PlotfileReader
 from ..io.xdmf import write_xdmf
 from ..parmparse import ParmParse
+from .build_distance import distance_state
 from .grad import refuse_unported
-
-
-def refuse_unported_iso(pp: ParmParse) -> None:
-    """isosurface options the port does not run yet: raise instead of
-    quietly taking another path."""
-    refuse_unported(pp)
-    if pp.query_bool("build_distance_function", False):
-        raise NotImplementedError(
-            "build_distance_function=1 needs geom/sdf.py, which is not ported "
-            "yet (ROADMAP.md Queue 1 item 8: the remaining tools)")
 
 
 def main(args: dict) -> None:
@@ -48,8 +41,9 @@ def main(args: dict) -> None:
     [comps=<extra node fields>] [sComp= nComp=] [finestLevel=]
     [is_per=0 0 0] [writeSurf=1] [surfFormat=MEF|DAT|XDMF] [outfile_base=]
     [computeArea=0] [engine=enum] [rm_external_elements=1] [force_dense=0]
-    [surface_is_large=0] [cluster_batch=0] [verbose=0] [device=cuda|cpu].
-    The plotfile loads in float64 whatever dtype=."""
+    [surface_is_large=0] [cluster_batch=0] [build_distance_function=0
+    [dmax=<4*dx_finest>] [dist_outfile=|outfile=<infile>_dist]] [verbose=0]
+    [device=cuda|cpu].  The plotfile loads in float64 whatever dtype=."""
     pp = ParmParse(args)
     verbose = pp.query_int("verbose", 0)
     infile = pp.get_str("infile")
@@ -59,7 +53,7 @@ def main(args: dict) -> None:
     finest = pp.query_int("finestLevel", None)
     engine = pp.query_str("engine", "enum")
     device = config.get_device(pp.query_str("device", "cuda"))
-    refuse_unported_iso(pp)
+    refuse_unported(pp)
 
     var_names = PlotfileReader(infile).var_names
     extras = pp.query_str_list("comps", [])
@@ -83,7 +77,7 @@ def main(args: dict) -> None:
     if meta.ndim2 and pp.query_bool("writeLines", False):
         raise NotImplementedError(
             "writeLines=1 needs geom/mef_tools.py, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 8: the remaining tools)")
+            "(ROADMAP.md Queue 1 item 8.6: the MEF tools)")
     fin = meta.n_levels - 1
     sparse = not meta.ndim2 and clustered(
         meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
@@ -123,6 +117,26 @@ def main(args: dict) -> None:
             print(f"wrote {base}.dat")
     if pp.query_bool("computeArea", False):
         print(f"Total area of surface: {surface_area(mef):.10g}")
+    if pp.query_bool("build_distance_function", False):
+        # in-run signed-distance plotfile (isosurface.cpp:1595-1654 per-box
+        # make_level_set3 + :1732-1748 WriteMultiLevelPlotfile), negative
+        # where the field < isoVal (isosurface.cpp:1644)
+        if meta.ndim2:
+            raise ValueError("build_distance_function requires DIM=3")
+        if sparse:
+            raise ValueError(
+                "build_distance_function is not supported on the sparse "
+                "clustered path yet; pass force_dense=1 to accept the "
+                "union-bbox footprint")
+        dmax = pp.query_float("dmax", 4.0 * meta.geoms[fin].dx[0])
+        dist = distance_state(ds, mef.positions()[mef.elements], dmax,
+                              iso_name, iso_val)
+        # the reference names the distance plotfile with `outfile`
+        # (isosurface.cpp:1734); dist_outfile is the explicit alias
+        dist_file = pp.query_str(
+            "dist_outfile", pp.query_str("outfile", infile + "_dist"))
+        dist.to_plotfile(dist_file)
+        print(f"wrote {dist_file}")
     if verbose:
         print(f"isosurface: read {t1 - t0:.3f} s, extract {t2 - t1:.3f} s, "
               f"write {time.perf_counter() - t2:.3f} s")

@@ -136,7 +136,7 @@ def test_sparse_refinement_raises(tmp_path, capsys):
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):
-    assert cli.main(["combinePlts", "infile=x"]) == 2
+    assert cli.main(["isoMEF", "infile=x"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli.main(["noSuchTool"]) == 2
     assert cli.main(["--help"]) == 0

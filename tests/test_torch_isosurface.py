@@ -264,7 +264,7 @@ def _xmf_n_elements(xmf: str) -> int:
 
 @pytest.mark.parametrize("key", [
     "engine=device", "engine=fused", "engine=numpy",
-    "build_distance_function=1", "cluster_batch=1", "ndevices=2"])
+    "shape_bucket=8", "cluster_batch=1", "ndevices=2"])
 def test_unported_options_raise(plotfiles, tmp_path, key):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md Queue 1"):
         cli.main(["isosurface", f"infile={plotfiles['1level']}", key,

@@ -71,7 +71,12 @@ def test_every_port_module_imports_without_jax():
               "native", "io.fab_pack", "amr.cluster", "io.particles",
               "tools.part_stream", "tools.integral", "tools.rms_vel",
               "ops.filter", "tools.filter_plt", "tools.flatten_amr",
-              "tools.turbulence_spectra", "tools.turbulence_post"):
+              "tools.turbulence_spectra", "tools.turbulence_post",
+              "tools.sub_plt", "tools.combine_plts", "tools.regrid_plt",
+              "tools.template", "tools.plt2npz", "tools.compare_plts",
+              "tools.slice_plot", "tools.avg_to_plane",
+              "tools.avg_plotfiles", "tools.amr_to_fe", "tools.interp",
+              "tools.doctor", "geom.sdf", "tools.build_distance"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -93,10 +98,14 @@ def test_cli_help_runs_without_jax():
     assert "isosurface" in res.stdout
     assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
     tools = res.stdout.split("tools:")[-1].split()
-    assert len(tools) == 17
+    assert len(tools) == 32
     for t in ("partStream", "integral", "rmsVel", "filterPlt",
               "flattenAMRFile", "turbulenceSpectra", "turbulenceTseries",
-              "turbulenceSlice", "augmentPlotfile", "varfieldAverage"):
+              "turbulenceSlice", "augmentPlotfile", "varfieldAverage",
+              "avgPlotfiles", "combinePlts", "subPlt", "regridPlt",
+              "avgToPlane", "slicePlot", "amrToFE", "interp", "plt2npz",
+              "npz2plt", "fcompare", "fextrema", "template", "doctor",
+              "buildDistance"):
         assert t in tools
 
 
@@ -168,6 +177,43 @@ def test_hit_clis_run_without_jax(tmp_path):
                str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert "wrote ./tseries.csv" in res.stdout
+
+
+def test_plt_tools_run_without_jax(tmp_path):
+    """The plotfile tools and buildDistance through the port's CLI, their
+    outputs read back."""
+    res = _run("import os, sys\n"
+               "import numpy as np\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.plotfile import "
+               "PlotfileReader\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "os.chdir(sys.argv[1])\n"
+               "write_synthetic_plotfile('plt', n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "d = ['device=cpu']\n"
+               "for args in (['subPlt', 'infile=plt', 'box=2 2 2 9 9 9'],\n"
+               "             ['regridPlt', 'infile=plt'],\n"
+               "             ['avgPlotfiles', 'infile=plt plt'],\n"
+               "             ['plt2npz', 'infile=plt', 'mode=flat'],\n"
+               "             ['npz2plt', 'infile=plt.npz', 'outfile=rt'],\n"
+               "             ['isosurface', 'infile=plt', "
+               "'isoCompName=progress', 'isoVal=0.5', 'outfile_base=s',\n"
+               "              'build_distance_function=1'],\n"
+               "             ['buildDistance', 'infile=plt', "
+               "'isoFile=s.mef', 'signComp=progress', 'isoVal=0.5',\n"
+               "              'outfile=bd'],\n"
+               "             ['fcompare', 'infile1=plt_dist', "
+               "'infile2=bd'],\n"
+               "             ['doctor']):\n"
+               "    assert cli.main(args + (d if args[0] != 'doctor' "
+               "else [])) == 0\n"
+               "assert PlotfileReader('plt_avg').meta.n_levels == 2\n"
+               "assert PlotfileReader('rt').var_names[0] == 'temp'\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "PLOTFILES AGREE" in res.stdout and "wrote plt_sub" in res.stdout
 
 
 def test_native_library_is_the_ports_own(tmp_path):
