@@ -4,8 +4,8 @@ fluxMatch=1), curvature (also do_smooth=1), stream, sampleStreamlines,
 isosurface, conditionalMean and jpdf tools through their CLI on
 synthetic 3-level hierarchies, time the main path (grad, curvature,
 isosurface), and drive partStream, integral, rmsVel, filterPlt,
-flattenAMRFile, the turbulence tools, the plotfile tools and
-buildDistance at full size.
+flattenAMRFile, the turbulence tools, the plotfile tools, buildDistance,
+the MEF tools and the streamline post-processing tools at full size.
 
     python3 chip_smoke.py
 
@@ -159,6 +159,24 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                seeding, sweeps as CUDA graphs and op by op, bitwise equal,
                parity sign), and every verb card against CPU at the repo
                case (the Tecplot text of amrToFE among them)
+  15 tools86 - the 13 MEF verbs (isoMEF, combineMEF, mergeMEF, multMEF,
+               scaleMEF, sliceMEF, smoothMEF, trimMEFgen, binMEF,
+               decimateMEF, surfDATtoMEF, surfMEFtoDAT, checkIso) on the
+               130,052-node sphere MEF with two fields, the production
+               isosurface of 7c and 1 M random triangles (binMEF, 16^3
+               bins over 3 coordinates), and stream2plt, streamScatter,
+               streamSub and streamTubeStats on 5b's 130,052-line
+               StreamData: launches counted (none of the five kernels runs
+               on this path: the "launches_tools86" of the kernel
+               summary), warm walls split into read / compute / write with
+               peak device memory and device time (one profiler session),
+               the closed forms (bins add up to the area, a trim through
+               the centre keeps half of it, the equator slice is one
+               closed polyline of length 2 pi r, the sphere and its
+               decimation watertight, tube volumes >= 0 and the seed
+               surface's 1000 K), and every verb card against CPU
+               (elements and connectivity equal, values within 1e-12; the
+               stream verbs at the repo case)
 The errors of 12, 12b and 13 go into the kernel summary's max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
@@ -196,7 +214,8 @@ from peleanalysis_tpu_torch.amr.hierarchy import (load_plotfile_fabs,
                                                   write_level_fabs)
 from peleanalysis_tpu_torch.geom import marching_cubes as mc
 from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
-from peleanalysis_tpu_torch.io.fab import fab_header_str
+from peleanalysis_tpu_torch.geom import mef_tools
+from peleanalysis_tpu_torch.io.fab import fab_header_str, read_fab
 from peleanalysis_tpu_torch.io.fab_pack import fetch_level, level_records
 from peleanalysis_tpu_torch.io.mef import MEF, read_mef, write_mef
 from peleanalysis_tpu_torch.io.particles import read_particles
@@ -851,7 +870,7 @@ def phase_stream(tmp: str) -> dict:
           "warm_s": warm,
           "warm_median_s": {k: statistics.median(v) for k, v in warm.items()},
           "radial_lines": radial})
-    return {"launches": launches, "plt": plt, "mef": mef}
+    return {"launches": launches, "plt": plt, "mef": mef, "sd": sd_grad}
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -2839,25 +2858,28 @@ class Split:
     them up.  ``take()`` returns the times since the last take."""
 
     READS = ("load_plotfile_fabs", "read_points", "_level_values",
-             "read_mef", "read_npz")
+             "read_mef", "read_npz", "read_mef_tecplot", "read_stream_data")
     WRITES = ("write_tecplot_lines", "write_part_file", "write_stream_data",
               "write_plotfile", "write_dat_1d", "write_dat_2d", "write_ppm",
               "write_pgm", "write_fab", "write_samples", "write_tec_febrick",
-              "write_flt", "write_mef", "savetxt_fast")
+              "write_flt", "write_mef", "savetxt_fast", "write_mef_tecplot")
 
     def __init__(self):
         from peleanalysis_tpu_torch.amr import dense
         from peleanalysis_tpu_torch.tools import (
             amr_to_fe, avg_plotfiles, avg_to_plane, build_distance,
             combine_plts, compare_plts, filter_plt, flatten_amr, integral,
-            interp, isosurface, part_stream, plt2npz, regrid_plt, rms_vel,
-            slice_plot, sub_plt, template, turbulence_post,
+            interp, isosurface, mef_tools, part_stream, plt2npz, regrid_plt,
+            rms_vel, slice_plot, stream2plt, stream_scatter, stream_sub,
+            stream_tube_stats, sub_plt, template, turbulence_post,
             turbulence_spectra)
         self.mods = [dense, filter_plt, flatten_amr, integral, part_stream,
                      rms_vel, turbulence_post, turbulence_spectra, amr_to_fe,
                      avg_plotfiles, avg_to_plane, build_distance,
                      combine_plts, compare_plts, interp, isosurface,
-                     plt2npz, regrid_plt, slice_plot, sub_plt, template]
+                     plt2npz, regrid_plt, slice_plot, sub_plt, template,
+                     mef_tools, stream2plt, stream_scatter, stream_sub,
+                     stream_tube_stats]
         self.t = {"read": 0.0, "write": 0.0}
         self._depth = 0
         self._saved = []
@@ -3560,7 +3582,6 @@ def tools84_card_vs_cpu(tmp: str, stream: dict) -> dict:
     if "PLOTFILES AGREE" not in printed[("fcompare", "card")]:
         raise AssertionError("fcompare of equal regrids")
     out["fcompare_fextrema_printouts"] = "equal"
-    from peleanalysis_tpu_torch.io.fab import read_fab
     with open(o("card", "slice.fab"), "rb") as fa, \
             open(o("cpu", "slice.fab"), "rb") as fb:
         (_, a), (_, b) = read_fab(fa), read_fab(fb)
@@ -3788,6 +3809,319 @@ def phase_tools84(tmp: str, stream: dict, dev) -> dict:
         "seconds": time.perf_counter() - t0})
     return launches
 
+# -- phase 15 -------------------------------------------------------------------
+BIN_RANDOM_TRIS = 1_000_000       # the 3-coordinate case of test_mef_tools.py
+BIN_RANDOM_CPU = 100_000          # its card-vs-CPU subset
+BIN_RANDOM_MAX = 1.004
+TOOLS86_BINS = "16 16 16"
+
+
+def fields_mef(src: str, path: str, names, fns) -> MEF:
+    """``src``'s surface with the node fields fns[i](x, y, z) named
+    names[i] (coordinates relative to the sphere's centre 0.5), written to
+    ``path``."""
+    m = read_mef(src)
+    p = m.positions() - 0.5
+    cols = [fn(p[:, 0], p[:, 1], p[:, 2])[:, None] for fn in fns]
+    out = MEF("sphere", ["X", "Y", "Z", *names],
+              np.concatenate([m.positions(), *cols], axis=1), m.elements)
+    write_mef(path, out)
+    return out
+
+
+def random_tris_mef(path: str, n: int, seed: int) -> MEF:
+    """n random small triangles in [0, BIN_RANDOM_MAX]^3, unshared nodes
+    (the 3-coordinate binning case of tests/test_mef_tools.py)."""
+    rng = np.random.default_rng(seed)
+    tris = rng.random((n, 1, 3)) + 0.004 * rng.random((n, 3, 3))
+    m = MEF("random", ["X", "Y", "Z"], tris.reshape(-1, 3),
+            np.arange(3 * n, dtype=np.int32).reshape(-1, 3))
+    write_mef(path, m)
+    return m
+
+
+def tools86_runs(p: dict, o, d: str) -> dict:
+    """The MEF and streamline post-processing verbs on the inputs ``p``
+    (sphere with fields f, g; its copy with h; the production isosurface;
+    random triangles; a StreamData), outputs named by ``o``: name -> (tool,
+    args)."""
+    dev = [f"device={d}"]
+    bins = ["binComps=X Y Z", f"nBins={TOOLS86_BINS}"]
+    sph_lo, sph_hi, r_hi = (" ".join([v] * 3) for v in (
+        "0.35", "0.65", str(BIN_RANDOM_MAX)))
+    return {
+        "isoMEF": ("isoMEF", [f"infile={p['sph']}", "comp=f", "isoVal=0.3",
+                              f"outfile={o('iso.mef')}", *dev]),
+        "combineMEF": ("combineMEF", [f"infile1={p['sph']}",
+                                      f"infile2={p['sph_h']}", "comps1=f g",
+                                      "comps2=h", f"outfile={o('comb.mef')}",
+                                      *dev]),
+        "mergeMEF": ("mergeMEF", [f"infile1={p['iso']}",
+                                  f"infile2={p['iso']}",
+                                  f"outfile={o('merged.mef')}", *dev]),
+        "multMEF": ("multMEF", [f"infile1={p['sph']}", f"infile2={p['sph']}",
+                                "comps=f g", f"outfile={o('mult.mef')}",
+                                *dev]),
+        "scaleMEF": ("scaleMEF", [f"infile={p['sph']}", "comps=f g",
+                                  "factors=2 -0.5",
+                                  f"outfile={o('scaled.mef')}", *dev]),
+        "sliceMEF": ("sliceMEF", [f"infile={p['iso']}", "dir=2",
+                                  "locs=0.5 0.55", "write_tec=1",
+                                  f"outfile_base={o('slice')}", *dev]),
+        "smoothMEF": ("smoothMEF", [f"infile={p['sph']}", "comps=f g",
+                                    "niter=3", f"outfile={o('smooth.mef')}",
+                                    *dev]),
+        "trimMEFgen": ("trimMEFgen", [f"infile={p['sph']}", "comps=f",
+                                      "signs=+", "vals=0", "do_area_stats=1",
+                                      f"outfile={o('trim.mef')}", *dev]),
+        "binMEF_sphere": ("binMEF", [f"infile={p['sph']}", *bins,
+                                     f"binMin={sph_lo}", f"binMax={sph_hi}",
+                                     *dev]),
+        "binMEF_random": ("binMEF", [f"infile={p['rand']}", *bins,
+                                     "binMin=0 0 0", f"binMax={r_hi}",
+                                     *dev]),
+        "decimateMEF": ("decimateMEF", [f"infile={p['sph']}",
+                                        f"outfile={o('dec.mef')}", *dev]),
+        "surfMEFtoDAT": ("surfMEFtoDAT", [f"infile={p['iso']}",
+                                          f"outfile={o('iso.dat')}", *dev]),
+        "surfDATtoMEF": ("surfDATtoMEF", [f"infile={o('iso.dat')}",
+                                          f"outfile={o('iso_rt.mef')}",
+                                          *dev]),
+        "checkIso": ("checkIso", [f"infile={p['sph']}", *dev]),
+        "checkIso_decimated": ("checkIso", [f"infile={o('dec.mef')}", *dev]),
+        "stream2plt": ("stream2plt", [
+            f"infile={p['sd']}", f"outfile={o('lines.fab')}",
+            "comps=X Y Z temp density", "maxComps=temp", "maxVals=1100",
+            "maxSgns=+", "distComp=3", "distVal=1000", *dev]),
+        "streamScatter": ("streamScatter", [
+            f"infile={p['sd']}", "vars=X Y Z temp density", "condVar=temp",
+            "condValMoreThan=1000", f"outfileBase={o('scatter')}", *dev]),
+        "streamSub": ("streamSub", [f"infile={p['sd']}", "sElt=0",
+                                    "nElt=20000", "comps=temp",
+                                    f"outfile={o('sub')}", *dev]),
+        "streamTubeStats": ("streamTubeStats", [
+            f"infile={p['sd']}", "intComps=temp density",
+            "avgComps=temp density", "gradComps=temp", "peakComp=temp",
+            "FCRComp=3", "compsAtPeakFCR=density", "nSmooth=3",
+            f"outfile={o('tube')}", *dev])}
+
+
+def printed_bins(text: str) -> dict:
+    """binMEF's sparse print: bin index tuple -> area."""
+    out = {}
+    for ln in text.splitlines():
+        t = ln.split()
+        if len(t) == 4 and all(x.isdigit() for x in t[:3]):
+            out[tuple(int(x) for x in t[:3])] = float(t[3])
+    return out
+
+
+def printed_check(text: str) -> dict:
+    return dict(ln.split(": ", 1) for ln in text.splitlines() if ": " in ln)
+
+
+def tools86_checks(p: dict, o, said: dict) -> dict:
+    """The closed forms: binMEF's bins add up to the surface's area;
+    trimming the sphere at its centre keeps half its area; the equator
+    slice of the production isosurface is one closed polyline of length
+    2 pi ISO_R; the sphere and its decimation are watertight; the tubes'
+    volumes are >= 0 and the seed surface's temp is 1000 K; the Tecplot
+    round trip and the merge keep the surface."""
+    out = {}
+    sph, iso = read_mef(p["sph"]), read_mef(p["iso"])
+    for k, m in (("binMEF_sphere", sph), ("binMEF_random",
+                                          read_mef(p["rand"]))):
+        bins = printed_bins(said[k])
+        total = m.total_area()
+        err = abs(sum(bins.values()) - total) / total
+        if not err <= 1e-9:
+            raise AssertionError(f"{k}: bins sum off the area by {err}")
+        out[k] = {"bins_filled": len(bins), "area": total,
+                  "sum_rel_err": err}
+    trim = read_mef(o("trim.mef"))
+    half = trim.total_area() / sph.total_area()
+    if not abs(half - 0.5) <= 1e-6 or trim.positions()[:, 2].min() < 0.5 \
+            - 1e-12:
+        raise AssertionError(f"trimMEFgen at the centre kept {half}")
+    out["trimMEFgen_area_fraction"] = half
+    eq = read_mef(o("slice_0.5.mef"))
+    # a degenerate triangle of the surface gives a zero-length segment:
+    # chains of two nodes are left out, as tests/test_mef_tools.py does
+    chains = [c for c in mef_tools.assemble_polylines(eq) if len(c) > 2]
+    length = eq.total_area()
+    lerr = length / (2 * np.pi * ISO_R) - 1
+    if not (len(chains) == 1 and chains[0][0] == chains[0][-1]
+            and abs(lerr) <= AREA_TOL):
+        raise AssertionError(f"sliceMEF equator: {len(chains)} chains, "
+                             f"length off 2 pi r by {lerr}")
+    out["sliceMEF_equator"] = {"segments": eq.n_elts,
+                               "length_rel_err": lerr}
+    for k in ("checkIso", "checkIso_decimated"):
+        rep = printed_check(said[k])
+        if rep.get("watertight") != "True":
+            raise AssertionError(f"{k}: {rep}")
+        out[k] = rep
+    dec = read_mef(o("dec.mef"))
+    if not dec.n_elts <= sph.n_elts // 2:
+        raise AssertionError(f"decimateMEF kept {dec.n_elts} faces")
+    out["decimateMEF"] = {"faces": [sph.n_elts, dec.n_elts],
+                          "area_ratio": dec.total_area() / sph.total_area()}
+    tube = read_mef(o("tube.mef"))
+    vol, tavg = tube.field("volume"), tube.field("temp_avg")
+    terr = float(np.abs(tavg - ISO_VAL).max()) / ISO_VAL
+    if not ((vol >= 0).all() and vol.max() > 0 and terr <= 0.01
+            and np.isfinite(tube.nodes).all()):
+        raise AssertionError(f"streamTubeStats: volumes or temp_avg off "
+                             f"{ISO_VAL} by {terr}")
+    out["streamTubeStats"] = {"elements": tube.n_elts,
+                              "volume_total": float(vol[::3].sum()),
+                              "temp_avg_max_rel_err": terr}
+    rt = read_mef(o("iso_rt.mef"))
+    if not (np.array_equal(rt.elements, iso.elements)
+            and np.allclose(rt.nodes, iso.nodes, rtol=1e-11, atol=0)):
+        raise AssertionError("surfMEFtoDAT -> surfDATtoMEF changed the "
+                             "surface")
+    if read_mef(o("merged.mef")).n_elts != 2 * iso.n_elts:
+        raise AssertionError("mergeMEF element count")
+    out["iso_prod"] = {"nodes": iso.n_nodes, "elements": iso.n_elts}
+    return out
+
+
+def close_mefs(a: str, b: str) -> dict:
+    """Same names and connectivity, nodes within 1e-12 of each column's
+    largest value."""
+    ma, mb = read_mef(a), read_mef(b)
+    if ma.names != mb.names or not np.array_equal(ma.elements, mb.elements):
+        raise AssertionError(f"{a} and {b}: names or connectivity differ")
+    scale = np.maximum(np.abs(mb.nodes).max(axis=0, initial=0.0), 1e-300)
+    err = float((np.abs(ma.nodes - mb.nodes) / scale).max(initial=0.0))
+    if not err <= 1e-12:
+        raise AssertionError(f"{a} vs {b}: {err} of the column scale")
+    return {"elements": ma.n_elts, "nodes": ma.n_nodes, "max_err": err}
+
+
+def tools86_card_vs_cpu(p: dict, tmp: str, repo_sd: str) -> dict:
+    """Every verb with device=cuda and with device=cpu on the same input:
+    the MEF verbs on the production sphere and isosurface (binMEF's random
+    triangles cut to BIN_RANDOM_CPU), the streamline verbs on the repo
+    case's StreamData.  Element counts and connectivity equal, values
+    within 1e-12 of each column's largest; the host verbs' files byte for
+    byte, checkIso's printout equal."""
+    q = dict(p, sd=repo_sd, rand=os.path.join(tmp, "t86_rand_cpu.mef"))
+    random_tris_mef(q["rand"], BIN_RANDOM_CPU, 7)
+    said, walls = {}, {}
+    for who in ("card", "cpu"):
+        o = lambda name, w=who: os.path.join(tmp, f"cc86_{w}_{name}")  # noqa
+        runs = tools86_runs(q, o, "cuda" if who == "card" else "cpu")
+        t0 = time.perf_counter()
+        for k, (tool, args) in runs.items():
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                run_wall(tool, args)
+            said[who, k] = out.getvalue()
+        walls[who] = time.perf_counter() - t0
+    o = lambda who, name: os.path.join(tmp, f"cc86_{who}_{name}")  # noqa
+    res = {"wall_s": walls}
+    for k in ("iso.mef", "comb.mef", "mult.mef", "scaled.mef",
+              "slice_0.5.mef", "slice_0.55.mef", "smooth.mef", "trim.mef",
+              "tube.mef"):
+        res[k] = close_mefs(o("card", k), o("cpu", k))
+    for k in ("merged.mef", "dec.mef", "iso.dat", "iso_rt.mef",
+              "slice_0.5.dat"):
+        if not filecmp.cmp(o("card", k), o("cpu", k), shallow=False):
+            raise AssertionError(f"{k}: card and CPU files differ")
+        res[k] = "bytes equal"
+    res["streamSub"] = {"files": same_tree(o("card", "sub"),
+                                           o("cpu", "sub"))}
+    for k in ("binMEF_sphere", "binMEF_random"):
+        a, b = printed_bins(said["card", k]), printed_bins(said["cpu", k])
+        scale = max(b.values())
+        err = max(abs(a[i] - b[i]) for i in b) / scale
+        if a.keys() != b.keys() or not err <= 1e-12:
+            raise AssertionError(f"{k}: card vs CPU bins {err}")
+        res[k] = {"bins_filled": len(b), "max_err": err}
+    for k in ("checkIso", "checkIso_decimated", "trimMEFgen",
+              "decimateMEF"):
+        if said["card", k] != said["cpu", k]:
+            raise AssertionError(f"{k}: printouts differ")
+    with open(o("card", "lines.fab"), "rb") as fa, \
+            open(o("cpu", "lines.fab"), "rb") as fb:
+        (ba, xa), (bb, xb) = read_fab(fa), read_fab(fb)
+    if ba != bb:
+        raise AssertionError("stream2plt: FAB boxes differ")
+    res["stream2plt"] = {"lines": ba.shape[0], "max_err": close_scaled(
+        np.moveaxis(xa, 0, -1), np.moveaxis(xb, 0, -1), "stream2plt")}
+    xa, xb = (np.loadtxt(o(w, "scatter.dat"), ndmin=2) for w in ("card",
+                                                                 "cpu"))
+    if xa.shape != xb.shape:
+        raise AssertionError("streamScatter: row counts differ")
+    res["streamScatter"] = {"rows": len(xa),
+                            "max_err": close_scaled(xa, xb, "streamScatter")}
+    return res
+
+
+def phase_tools86(tmp: str, stream: dict) -> dict:
+    """The MEF tools and the streamline post-processing verbs on the card
+    at full size (the 130,052-node sphere MEF of phase 5b with fields, the
+    production isosurface of phase 7c, 1 M random triangles binned 16^3
+    over 3 coordinates, phase 5b's StreamData of 130,052 lines with
+    elements): launches counted (counts set to 0 just before the cold
+    runs, read just after: none of the five kernels runs on this path),
+    warm walls split into read / compute / write with peak device memory
+    and device time, the closed forms, and every verb card against CPU."""
+    t0 = time.perf_counter()
+    o = lambda name: os.path.join(tmp, f"t86_{name}")  # noqa: E731
+    src = os.path.join(tmp, "seeds_prod.mef")
+    p = {"sph": o("sphere.mef"), "sph_h": o("sphere_h.mef"),
+         "iso": os.path.join(tmp, "iso_prod.mef"), "rand": o("rand.mef"),
+         "sd": os.path.join(tmp, "sd_prod")}
+    sph = fields_mef(src, p["sph"], ["f", "g"], [
+        lambda x, y, z: z / STREAM_R, lambda x, y, z: x * y / STREAM_R ** 2])
+    fields_mef(src, p["sph_h"], ["h"], [lambda x, y, z: x + y])
+    random_tris_mef(p["rand"], BIN_RANDOM_TRIS, 5)
+    steps = {"generate_s": time.perf_counter() - t0}
+    runs = tools86_runs(p, o, "cuda")
+    t1 = time.perf_counter()
+    reset_counts()
+    cold, said = {}, {}
+    for k, (tool, args) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cold[k] = run_tool_counted(tool, args, ())
+        said[k] = out.getvalue()
+    launches = counts()
+    steps["cold_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tools = {}
+    for k, (tool, args) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            tools[k] = {"cold_s": cold[k], **tool_cost(tool, args, False)}
+    steps["warm_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        profs = kernel_profiles({
+            k: (lambda a=args, t=tool: cli.main([t, *a]))
+            for k, (tool, args) in runs.items()})
+    for k, prof in profs.items():
+        tools[k].update({f: prof[f] for f in ("device_ms", "copy_ms",
+                                              "kernels", "trace_whole")})
+        tools[k]["profiled_wall_ms"] = prof["wall_ms"]
+    steps["profile_s"] = time.perf_counter() - t1
+    checks = tools86_checks(p, o, said)
+    t1 = time.perf_counter()
+    cmp = tools86_card_vs_cpu(p, tmp, stream["sd"])
+    steps["card_vs_cpu_s"] = time.perf_counter() - t1
+    for f in os.listdir(tmp):
+        if f.startswith(("t86_", "cc86_")):
+            f = os.path.join(tmp, f)
+            shutil.rmtree(f) if os.path.isdir(f) else os.remove(f)
+    emit({"phase": "tools86", "cases": {
+        "sphere_nodes": sph.n_nodes, "sphere_elements": sph.n_elts,
+        "random_triangles": BIN_RANDOM_TRIS, "bins": TOOLS86_BINS,
+        "stream_data": p["sd"], "repo_stream_data": stream["sd"]},
+        "steps": steps, "launches": launches, "tools": tools,
+        "checks": checks, "card_vs_cpu": cmp,
+        "seconds": time.perf_counter() - t0})
+    return launches
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -3817,6 +4151,7 @@ def main() -> int:
                                      phase_sparse_scale(tmp, dev))
         tools8, tools8_err = phase_tools8(tmp, stream, dev)
         tools84 = phase_tools84(tmp, stream, dev)
+        tools86 = phase_tools86(tmp, stream)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     # the kernels held at the sparse paths' shapes (phases 12 and 12b) and
@@ -3840,6 +4175,7 @@ def main() -> int:
         "launches": launches, "launches_sparse": sparse["grad_mag"],
         "launches_tools8": tools8["grad_mag"],
         "launches_tools84": tools84["grad_mag"],
+        "launches_tools86": tools86["grad_mag"],
         **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
@@ -3850,6 +4186,7 @@ def main() -> int:
         "launches_sparse": sparse["stream_march"],
         "launches_tools8": tools8["stream_march"],
         "launches_tools84": tools84["stream_march"],
+        "launches_tools86": tools86["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -3861,6 +4198,7 @@ def main() -> int:
         "launches_sparse": sparse["stream_march_order_key"],
         "launches_tools8": tools8["stream_march_order_key"],
         "launches_tools84": tools84["stream_march_order_key"],
+        "launches_tools86": tools86["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -3870,14 +4208,16 @@ def main() -> int:
         "replaces": "peleanalysis_tpu/ops/stats.py:30",
         "launches": stats_launches["stats_binned"],
         "launches_sparse": sparse["stats_binned"],
-        "launches_tools84": tools84["stats_binned"], **stats_k["binned"]}, {
+        "launches_tools84": tools84["stats_binned"],
+        "launches_tools86": tools86["stats_binned"], **stats_k["binned"]}, {
         # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
         "name": "stats_joint", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
         "replaces": "peleanalysis_tpu/ops/stats.py:184",
         "launches": stats_launches["stats_joint"],
         "launches_sparse": sparse["stats_joint"],
-        "launches_tools84": tools84["stats_joint"], **stats_k["joint"]}]})
+        "launches_tools84": tools84["stats_joint"],
+        "launches_tools86": tools86["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -9,7 +9,12 @@ tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
 ``augmentPlotfile``, ``varfieldAverage``, ``avgPlotfiles``,
 ``combinePlts``, ``subPlt``, ``regridPlt``, ``avgToPlane``, ``slicePlot``,
 ``amrToFE``, ``interp``, ``plt2npz``, ``npz2plt``, ``fcompare``,
-``fextrema``, ``template``, ``doctor``, ``buildDistance``).  Extra keys:
+``fextrema``, ``template``, ``doctor``, ``buildDistance``, the MEF tools
+``isoMEF``, ``combineMEF``, ``mergeMEF``, ``multMEF``, ``scaleMEF``,
+``sliceMEF``, ``smoothMEF``, ``trimMEFgen``, ``binMEF``, ``decimateMEF``,
+``surfDATtoMEF``, ``surfMEFtoDAT``, ``checkIso``, and the streamline
+post-processing tools ``stream2plt``, ``streamScatter``, ``streamSub``,
+``streamTubeStats``).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions; ``doctor`` takes none and reports what is there) and the
 global ``dtype=float32|float64``.
@@ -58,6 +63,14 @@ TOOLS = {
     "template": ".tools.template",
     "doctor": ".tools.doctor",
     "buildDistance": ".tools.build_distance",
+    **{t: ".tools.mef_tools" for t in (
+        "isoMEF", "combineMEF", "mergeMEF", "multMEF", "scaleMEF",
+        "sliceMEF", "smoothMEF", "trimMEFgen", "binMEF", "decimateMEF",
+        "surfDATtoMEF", "surfMEFtoDAT", "checkIso")},
+    "stream2plt": ".tools.stream2plt",
+    "streamScatter": ".tools.stream_scatter",
+    "streamSub": ".tools.stream_sub",
+    "streamTubeStats": ".tools.stream_tube_stats",
 }
 
 

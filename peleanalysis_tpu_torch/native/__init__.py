@@ -1,11 +1,12 @@
 """Native (C++) host code of the port, loaded through ``ctypes``: the
-parallel VisMF/FAB loader (``vismf_io.cpp``, ``load_fabs``) and the
+parallel VisMF/FAB loader (``vismf_io.cpp``, ``load_fabs``), the
 snprintf text formatter (``fmt.cpp``: ``tecplot_zones``, ``format_g_rows``,
-``format_i_rows``).
+``format_i_rows``) and the quadric-error mesh decimation of decimateMEF
+(``qem.cpp``, ``qem_decimate``).
 
-Copies of ``peleanalysis_tpu/native`` (its ``qem.cpp`` is not needed yet),
-so the port reads and writes the same bytes without importing the JAX
-package.  The two sources compile with g++ on first use into one shared
+Copies of ``peleanalysis_tpu/native``, so the port reads, writes and
+decimates to the same bytes without importing the JAX package.  The
+sources compile with g++ on first use into one shared
 library under ``build/peleanalysis_tpu_torch/`` at the repository root,
 named by the hash of the sources and the flags; nothing runs at import
 time.  A failed build raises: there is no pure-Python fallback.
@@ -26,7 +27,7 @@ import numpy as np
 from ..ops.cuda_build import BUILD_DIR
 
 SRC_DIR = Path(__file__).resolve().parent
-SOURCES = ("vismf_io.cpp", "fmt.cpp")
+SOURCES = ("qem.cpp", "vismf_io.cpp", "fmt.cpp")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 # load_fabs never starts more threads than this
 MAX_THREADS = 16
@@ -69,6 +70,20 @@ def get_lib() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
+            lib.qem_decimate.restype = ctypes.c_int
+            lib.qem_decimate.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                np.ctypeslib.ndpointer(np.float64, flags="C"),
+                ctypes.c_void_p,
+                np.ctypeslib.ndpointer(np.int32, flags="C"),
+                ctypes.c_int, ctypes.c_double,
+                ctypes.c_int, ctypes.c_int,
+                ctypes.c_double, ctypes.c_double,
+                np.ctypeslib.ndpointer(np.float64, flags="C"),
+                ctypes.c_void_p,
+                np.ctypeslib.ndpointer(np.int32, flags="C"),
+                np.ctypeslib.ndpointer(np.int32, flags="C"),
+            ]
             lib.load_fabs.restype = ctypes.c_int
             lib.load_fabs.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p),
@@ -214,3 +229,44 @@ def load_fabs(paths, offsets, dims, sel, itemsize: int, dests) -> None:
     if rc != 0:
         raise OSError(f"load_fabs: record {rc - 1} ({paths[rc - 1]}, "
                       f"offset {int(offsets[rc - 1])}) could not be read")
+
+
+def qem_decimate(verts: np.ndarray, tris: np.ndarray, face_target: int,
+                 boundary_weight: float = 1000.0,
+                 attrs: np.ndarray = None,
+                 placement_policy: int = 3,
+                 weighting_policy: int = 1,
+                 meshing_penalty: float = 1.0,
+                 compactness_ratio: float = 0.0):
+    """Decimate (verts [n,3] float64, tris [m,3] int32) to ~face_target
+    faces.  Config surface mirrors the reference's qslim command line
+    (Tools/qslim/cmdline.cpp:25-36): placement_policy 0=endpoints
+    1=endormid 2=line 3=optimal; weighting_policy 0=uniform 1=area
+    2=angle; meshing_penalty > 1 penalizes collapses that flip normals or
+    create faces below compactness_ratio.
+    Returns (verts, tris, attrs or None)."""
+    lib = get_lib()
+    verts = np.ascontiguousarray(verts, np.float64)
+    tris = np.ascontiguousarray(tris, np.int32)
+    n, m = len(verts), len(tris)
+    n_attr = 0 if attrs is None else attrs.shape[1]
+    if attrs is not None:
+        attrs = np.ascontiguousarray(attrs, np.float64)
+    out_v = np.empty((n, 3), np.float64)
+    out_a = (np.empty((n, n_attr), np.float64) if n_attr else
+             np.empty((1, 1), np.float64))
+    out_t = np.empty((m, 3), np.int32)
+    counts = np.zeros(2, np.int32)
+    rc = lib.qem_decimate(
+        n, m, n_attr, verts,
+        attrs.ctypes.data if n_attr else None,
+        tris, int(face_target), float(boundary_weight),
+        int(placement_policy), int(weighting_policy),
+        float(meshing_penalty), float(compactness_ratio),
+        out_v, out_a.ctypes.data, out_t, counts)
+    if rc != 0:
+        raise RuntimeError(f"qem_decimate failed rc={rc}")
+    nv, nf = int(counts[0]), int(counts[1])
+    if n_attr:
+        return out_v[:nv], out_t[:nf], out_a[:nv]
+    return out_v[:nv], out_t[:nf], None

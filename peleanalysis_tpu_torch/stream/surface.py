@@ -1,7 +1,10 @@
 """Streamline-derived surface operations: alt-surface construction and the
 per-line decorators (thermal thickness, cold-side strain, inclination angle).
 
-A copy (numpy only) of ``peleanalysis_tpu/stream/surface.py``.
+A copy of ``peleanalysis_tpu/stream/surface.py``; the crossing search,
+the station interpolation and the arclength run in torch, on tensors of
+any device (stream2plt's predicates and streamTubeStats on the card) and
+on numpy arrays through torch on the CPU, bitwise as numpy computes them.
 
 Replaces the reference's per-line scan -> MPI_Gatherv -> IOProc descramble
 pattern (reference Src/stream.cpp:1840-2074 build_surface_at_isoVal,
@@ -11,10 +14,31 @@ resident [nlines, npts, nvars] array — no communication needed.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
+import torch
+
+from ..ops.vec3 import sqrt
 
 
-def _crossings_from_mid(vals: np.ndarray, target: float):
+def _on_torch(fn):
+    """Run a torch implementation on numpy arguments too: they go through
+    torch on the CPU (no copy) and the results come back as numpy."""
+    @functools.wraps(fn)
+    def wrapper(*args):
+        if not any(isinstance(a, np.ndarray) for a in args):
+            return fn(*args)
+        out = fn(*(torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+                   for a in args))
+        if isinstance(out, tuple):
+            return tuple(o.numpy() for o in out)
+        return out.numpy()
+    return wrapper
+
+
+@_on_torch
+def _crossings_from_mid(vals, target: float):
     """The reference's per-line crossing scan, vectorized (all three
     decorators share it: stream.cpp:1895-1930 / 1420-1446 / 1670-1700).
     From the line's LOW end, take the first upward bracket
@@ -25,38 +49,39 @@ def _crossings_from_mid(vals: np.ndarray, target: float):
     through.  (r5 review fix: the previous version scanned outward from
     the MIDPOINT and zero-filled unfound lines.)
 
-    vals: [nl, npts].  Returns (jlo [nl], frac [nl], found [nl]) — found
-    marks a genuine bracket; clamped values are still usable (the
-    reference uses them unconditionally)."""
+    vals: [nl, npts] (a tensor on any device, or numpy).  Returns (jlo
+    [nl], frac [nl], found [nl]) — found marks a genuine bracket; clamped
+    values are still usable (the reference uses them unconditionally)."""
     nl, npts = vals.shape
-    r = np.arange(nl)
+    r = torch.arange(nl, device=vals.device)
     up = (vals[:, :-1] <= target) & (vals[:, 1:] > target)
-    found = up.any(axis=1)
-    jlo = np.argmax(up, axis=1).astype(np.int64)
+    found = up.any(dim=1)
+    # the first upward bracket (argmax returns the first maximum)
+    jlo = torch.argmax(up.to(torch.int32), dim=1)
     a = vals[r, jlo]
     b = vals[r, jlo + 1]
-    frac = np.where(b != a, (target - a) / np.where(b != a, b - a, 1.0),
-                    0.0)
+    frac = torch.where(b != a, (target - a) / torch.where(b != a, b - a,
+                                                          1.0), 0.0)
     above = target > vals[:, -1]           # clamp to the hi end
     at_lo = ~above & ~(target > vals[:, 0])  # clamp to the lo end
     # unfound within range: the reference's scan exhausts and lerps from
     # the last interval
     tail = ~found & ~above & ~at_lo
     la, lb = vals[:, -2], vals[:, -1]
-    f_last = np.where(lb != la, (target - la) / np.where(lb != la,
-                                                         lb - la, 1.0), 0.0)
-    jlo = np.where(above | tail, npts - 2, np.where(at_lo, 0, jlo))
-    frac = np.where(above, 1.0,
-                    np.where(at_lo, 0.0, np.where(tail, f_last, frac)))
+    f_last = torch.where(lb != la, (target - la) / torch.where(
+        lb != la, lb - la, 1.0), 0.0)
+    jlo = torch.where(above | tail, npts - 2, torch.where(at_lo, 0, jlo))
+    frac = torch.where(above, 1.0, torch.where(
+        at_lo, 0.0, torch.where(tail, f_last, frac)))
     return jlo, frac, found
 
 
-def _interp_at(lines: np.ndarray, jlo: np.ndarray, frac: np.ndarray
-               ) -> np.ndarray:
+@_on_torch
+def _interp_at(lines, jlo, frac):
     """Linear interp of all comps at station jlo+frac. [nl, nvars]."""
-    nl = lines.shape[0]
-    a = lines[np.arange(nl), jlo]
-    b = lines[np.arange(nl), jlo + 1]
+    r = torch.arange(lines.shape[0], device=lines.device)
+    a = lines[r, jlo]
+    b = lines[r, jlo + 1]
     return a + frac[:, None] * (b - a)
 
 
@@ -85,11 +110,17 @@ def build_surface_at_isoval(lines: np.ndarray, names, comp_name: str,
     return pts, found, dist
 
 
-def arc_length(lines: np.ndarray) -> np.ndarray:
-    """Cumulative arclength along each line [nl, npts]."""
-    seg = np.linalg.norm(np.diff(lines[:, :, :3], axis=1), axis=2)
-    return np.concatenate([np.zeros((lines.shape[0], 1)),
-                           np.cumsum(seg, axis=1)], axis=1)
+@_on_torch
+def arc_length(lines):
+    """Cumulative arclength along each line [nl, npts] (a tensor on any
+    device, or numpy); each step's length is numpy's norm,
+    sqrt((dx*dx + dy*dy) + dz*dz)."""
+    d = lines[:, 1:, :3] - lines[:, :-1, :3]
+    d = d * d
+    seg = sqrt((d[..., 0] + d[..., 1]) + d[..., 2])
+    return torch.cat([torch.zeros((lines.shape[0], 1), dtype=lines.dtype,
+                                  device=lines.device),
+                      torch.cumsum(seg, dim=1)], dim=1)
 
 
 def thermal_thickness(lines: np.ndarray, names, thick_comp: str,

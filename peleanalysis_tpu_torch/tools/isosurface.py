@@ -28,9 +28,11 @@ from ..amr.hierarchy import load_plotfile_fabs
 from ..geom.marching_cubes import (extract_isosurface,
                                    extract_isosurface_sparse, surface_area)
 from ..geom.marching_squares import extract_isolines
+from ..geom.mef_tools import assemble_polylines
 from ..io.mef import write_mef, write_mef_tecplot
 from ..io.plotfile import PlotfileReader
 from ..io.xdmf import write_xdmf
+from ..native import savetxt_fast
 from ..parmparse import ParmParse
 from .build_distance import distance_state
 from .grad import refuse_unported
@@ -43,6 +45,7 @@ def main(args: dict) -> None:
     [computeArea=0] [engine=enum] [rm_external_elements=1] [force_dense=0]
     [surface_is_large=0] [cluster_batch=0] [build_distance_function=0
     [dmax=<4*dx_finest>] [dist_outfile=|outfile=<infile>_dist]] [verbose=0]
+    [writeLines=0 (DIM=2: the contour's polylines, <base>_lines.dat)]
     [device=cuda|cpu].  The plotfile loads in float64 whatever dtype=."""
     pp = ParmParse(args)
     verbose = pp.query_int("verbose", 0)
@@ -74,10 +77,6 @@ def main(args: dict) -> None:
     meta, names, fabs = load_plotfile_fabs(
         infile, names=load, max_level=finest,
         is_periodic=[bool(p) for p in is_per])
-    if meta.ndim2 and pp.query_bool("writeLines", False):
-        raise NotImplementedError(
-            "writeLines=1 needs geom/mef_tools.py, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 8.6: the MEF tools)")
     fin = meta.n_levels - 1
     sparse = not meta.ndim2 and clustered(
         meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
@@ -140,3 +139,13 @@ def main(args: dict) -> None:
     if verbose:
         print(f"isosurface: read {t1 - t0:.3f} s, extract {t2 - t1:.3f} s, "
               f"write {time.perf_counter() - t2:.3f} s")
+    if meta.ndim2 and pp.query_bool("writeLines", False):
+        # MakeCLines polyline assembly (isosurface.cpp:1159-1271)
+        chains = assemble_polylines(mef)
+        with open(base + "_lines.dat", "w") as f:
+            f.write("VARIABLES = " + " ".join(mef.names) + "\n")
+            for ci, chain in enumerate(chains):
+                f.write(f'ZONE T="line{ci}" I={len(chain)} '
+                        "DATAPACKING=POINT\n")
+                savetxt_fast(f, mef.nodes[chain], fmt="%.9g")
+        print(f"wrote {base}_lines.dat ({len(chains)} polylines)")

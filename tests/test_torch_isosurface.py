@@ -283,7 +283,11 @@ def test_unported_library_paths_raise(plotfiles, tmp_path):
     plt = str(tmp_path / "plt2d")
     write_synthetic_plotfile(plt, n_cell=16, n_levels=1, ndim=2,
                              is_periodic=(False, False))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["isosurface", f"infile={plt}", "isoCompName=progress",
-                  "isoVal=0.5", "writeLines=1", "device=cpu",
-                  f"outfile_base={tmp_path / 'out'}"])
+    # writeLines=1 (DIM=2) is ported: it writes the contour's polylines
+    # (held to the JAX CLI's bytes in test_torch_mef_tools.py)
+    assert cli.main(["isosurface", f"infile={plt}", "isoCompName=progress",
+                     "isoVal=0.5", "writeLines=1", "device=cpu",
+                     f"outfile_base={tmp_path / 'out'}"]) == 0
+    with open(tmp_path / "out_lines.dat") as f:
+        assert f.readline().startswith("VARIABLES")
+        assert f.readline().startswith('ZONE T="line0"')

@@ -76,7 +76,10 @@ def test_every_port_module_imports_without_jax():
               "tools.template", "tools.plt2npz", "tools.compare_plts",
               "tools.slice_plot", "tools.avg_to_plane",
               "tools.avg_plotfiles", "tools.amr_to_fe", "tools.interp",
-              "tools.doctor", "geom.sdf", "tools.build_distance"):
+              "tools.doctor", "geom.sdf", "tools.build_distance",
+              "ops.vec3", "io.vtk", "geom.mef_tools", "tools.mef_tools",
+              "tools.stream2plt", "tools.stream_scatter",
+              "tools.stream_sub", "tools.stream_tube_stats"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -98,14 +101,18 @@ def test_cli_help_runs_without_jax():
     assert "isosurface" in res.stdout
     assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
     tools = res.stdout.split("tools:")[-1].split()
-    assert len(tools) == 32
+    assert len(tools) == 49
     for t in ("partStream", "integral", "rmsVel", "filterPlt",
               "flattenAMRFile", "turbulenceSpectra", "turbulenceTseries",
               "turbulenceSlice", "augmentPlotfile", "varfieldAverage",
               "avgPlotfiles", "combinePlts", "subPlt", "regridPlt",
               "avgToPlane", "slicePlot", "amrToFE", "interp", "plt2npz",
               "npz2plt", "fcompare", "fextrema", "template", "doctor",
-              "buildDistance"):
+              "buildDistance", "isoMEF", "combineMEF", "mergeMEF",
+              "multMEF", "scaleMEF", "sliceMEF", "smoothMEF", "trimMEFgen",
+              "binMEF", "decimateMEF", "surfDATtoMEF", "surfMEFtoDAT",
+              "checkIso", "stream2plt", "streamScatter", "streamSub",
+              "streamTubeStats"):
         assert t in tools
 
 
@@ -214,6 +221,46 @@ def test_plt_tools_run_without_jax(tmp_path):
                str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert "PLOTFILES AGREE" in res.stdout and "wrote plt_sub" in res.stdout
+
+
+def test_mef_and_stream_post_clis_run_without_jax(tmp_path):
+    """decimateMEF (the port's qem.cpp build), binMEF and checkIso on an
+    isosurface, and stream2plt and streamTubeStats on a StreamData seeded
+    from it, through the port's CLI; outputs read back."""
+    res = _run("import os, sys\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.mef import read_mef\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "os.chdir(sys.argv[1])\n"
+               "write_synthetic_plotfile('plt', n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "d = ['device=cpu']\n"
+               "for args in (['isosurface', 'infile=plt', "
+               "'isoCompName=progress', 'isoVal=0.5', 'outfile_base=s'],\n"
+               "             ['decimateMEF', 'infile=s.mef', "
+               "'outfile=dec.mef'],\n"
+               "             ['checkIso', 'infile=dec.mef'],\n"
+               "             ['binMEF', 'infile=s.mef', 'binComps=Z', "
+               "'binMin=0', 'binMax=1', 'nBins=4'],\n"
+               "             ['stream', 'plotfile=plt', "
+               "'progressName=progress', 'isoFile=s.mef', 'nRKsteps=5',\n"
+               "              'hRK=0.5', 'streamFile=sd'],\n"
+               "             ['stream2plt', 'infile=sd', 'outfile=l.fab'],\n"
+               "             ['streamTubeStats', 'infile=sd', "
+               "'outfile=tube', 'nSmooth=1']):\n"
+               "    assert cli.main(args + d) == 0\n"
+               "assert read_mef('dec.mef').n_elts < read_mef('s.mef').n_elts\n"
+               "assert read_mef('tube.mef').n_elts == "
+               "read_mef('s.mef').n_elts\n"
+               "print(sorted({l.split()[-1] for l in open('/proc/self/maps') "
+               "if l.rstrip().endswith('.so') and 'pele_native' in l}))\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "decimated" in res.stdout and "watertight: True" in res.stdout
+    assert "binMEF done" in res.stdout and "wrote tube.mef" in res.stdout
+    build = os.path.join(REPO, "build", "peleanalysis_tpu_torch")
+    assert build in res.stdout
 
 
 def test_native_library_is_the_ports_own(tmp_path):
