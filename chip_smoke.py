@@ -5,7 +5,8 @@ isosurface, conditionalMean and jpdf tools through their CLI on
 synthetic 3-level hierarchies, time the main path (grad, curvature,
 isosurface), and drive partStream, integral, rmsVel, filterPlt,
 flattenAMRFile, the turbulence tools, the plotfile tools, buildDistance,
-the MEF tools and the streamline post-processing tools at full size.
+the MEF tools, the streamline post-processing tools and the chemistry
+tools at full size.
 
     python3 chip_smoke.py
 
@@ -177,6 +178,26 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                surface's 1000 K), and every verb card against CPU
                (elements and connectivity equal, values within 1e-12; the
                stream verbs at the repo case)
+  16 tools88 - plotXtoY, plotYtoX, plotTransportCoeff, plotTYtoLe,
+               plotQPD (QPDatom=C; an 84-reaction mechanism over drm19's
+               21 species written by the script), sCO2 (nBins=64,
+               nBinPlanes=10) and buildPMF (a 2,000-point flame table) at
+               production size (the 19.5 M-cell case with 21 mole
+               fractions, temp, density, adv_0, adv_1 and vfrac; 4 GB):
+               launches counted (none of the five kernels runs on this
+               path: the "launches_tools88" of the kernel summary), each
+               cold run's device time and kernels from one profiler
+               session, warm walls split into read / compute / write with
+               peak device memory, each output read back and deleted;
+               every verb card against CPU at the repo case (adv_0 with
+               NaN, +-inf and +-1e30 cells; plotfiles within 1e-12,
+               plotQPD within 1e-10, sCO2 within 1e-12, buildPMF byte for
+               byte) and the closed forms (Y sums to 1, Y -> X round trip,
+               Le = 1, a uniform field's plotQPD integral Q x V_domain,
+               sCO2's slabs adding up to the domain); qf_qr_sums of a
+               53-species, 325-reaction mechanism on 19.4 M random states
+               made on the card (CUDA events, peak memory, bound), and on
+               the CPU for 1 M of them
 The errors of 12, 12b and 13 go into the kernel summary's max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
@@ -208,10 +229,12 @@ from peleanalysis_tpu_torch.amr.cluster import (cluster_boxes,
                                                 cluster_substates,
                                                 coarse_only_state)
 from peleanalysis_tpu_torch.amr.dense import (DenseAmrState, PlotfileRecords,
-                                              _box_slices)
-from peleanalysis_tpu_torch.amr.hierarchy import (load_plotfile_fabs,
+                                              _box_slices, _level_metas)
+from peleanalysis_tpu_torch.amr.hierarchy import (AmrMeta, load_plotfile_fabs,
                                                   output_layout,
                                                   write_level_fabs)
+from peleanalysis_tpu_torch.chem.kinetics import Kinetics, parse_chemkin
+from peleanalysis_tpu_torch.chem.mechanism import molecular_weight
 from peleanalysis_tpu_torch.geom import marching_cubes as mc
 from peleanalysis_tpu_torch.geom.marching_cubes import extract_isosurface
 from peleanalysis_tpu_torch.geom import mef_tools
@@ -231,6 +254,8 @@ from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
 from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
+                                            make_amr_hierarchy,
+                                            synthetic_mechanism,
                                             write_hit_run,
                                             write_scattered_plotfile,
                                             write_synthetic_plotfile)
@@ -238,9 +263,11 @@ from peleanalysis_tpu_torch.tools.conditional_mean import (
     accumulate_conditional_mean, accumulate_stats_fused, load_parts,
     write_cm_dat)
 from peleanalysis_tpu_torch.tools.curvature import compute_curvature_dense
+from peleanalysis_tpu_torch.tools.flatten_amr import flatten_to_level
 from peleanalysis_tpu_torch.tools.grad import compute_grad_dense
 from peleanalysis_tpu_torch.tools.jpdf import (compute_jpdf_pairs,
                                                normalize_pair, write_gnuplot)
+from peleanalysis_tpu_torch.tools.sco2 import slab_sums
 from peleanalysis_tpu_torch.tools.stream import write_tecplot_lines
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -2858,28 +2885,29 @@ class Split:
     them up.  ``take()`` returns the times since the last take."""
 
     READS = ("load_plotfile_fabs", "read_points", "_level_values",
-             "read_mef", "read_npz", "read_mef_tecplot", "read_stream_data")
+             "read_mef", "read_npz", "read_mef_tecplot", "read_stream_data",
+             "assemble_level")
     WRITES = ("write_tecplot_lines", "write_part_file", "write_stream_data",
               "write_plotfile", "write_dat_1d", "write_dat_2d", "write_ppm",
               "write_pgm", "write_fab", "write_samples", "write_tec_febrick",
               "write_flt", "write_mef", "savetxt_fast", "write_mef_tecplot")
 
     def __init__(self):
-        from peleanalysis_tpu_torch.amr import dense
+        from peleanalysis_tpu_torch.amr import cluster, dense
         from peleanalysis_tpu_torch.tools import (
             amr_to_fe, avg_plotfiles, avg_to_plane, build_distance,
-            combine_plts, compare_plts, filter_plt, flatten_amr, integral,
-            interp, isosurface, mef_tools, part_stream, plt2npz, regrid_plt,
-            rms_vel, slice_plot, stream2plt, stream_scatter, stream_sub,
-            stream_tube_stats, sub_plt, template, turbulence_post,
-            turbulence_spectra)
+            build_pmf, chem_tools, combine_plts, compare_plts, filter_plt,
+            flatten_amr, integral, interp, isosurface, mef_tools,
+            part_stream, plt2npz, regrid_plt, rms_vel, sco2, slice_plot,
+            stream2plt, stream_scatter, stream_sub, stream_tube_stats,
+            sub_plt, template, turbulence_post, turbulence_spectra)
         self.mods = [dense, filter_plt, flatten_amr, integral, part_stream,
                      rms_vel, turbulence_post, turbulence_spectra, amr_to_fe,
                      avg_plotfiles, avg_to_plane, build_distance,
                      combine_plts, compare_plts, interp, isosurface,
                      plt2npz, regrid_plt, slice_plot, sub_plt, template,
                      mef_tools, stream2plt, stream_scatter, stream_sub,
-                     stream_tube_stats]
+                     stream_tube_stats, cluster, chem_tools, sco2, build_pmf]
         self.t = {"read": 0.0, "write": 0.0}
         self._depth = 0
         self._saved = []
@@ -2916,7 +2944,9 @@ class Split:
         for owner, name, kind in ((DenseAmrState, "to_plotfile", "write"),
                                   (PlotfileRecords, "add", "write"),
                                   (PlotfileRecords, "write", "write"),
-                                  (np, "savez_compressed", "write")):
+                                  (np, "savez_compressed", "write"),
+                                  (np, "save", "write"),
+                                  (np, "savetxt", "write")):
             real = getattr(owner, name)
             self._saved.append((owner, name, real))
             setattr(owner, name, self._wrap(kind, real))
@@ -4123,6 +4153,459 @@ def phase_tools86(tmp: str, stream: dict) -> dict:
     return launches
 
 
+# -- phase 16 -------------------------------------------------------------------
+# drm19's species (PelePhysics' drm19 mechanism); the script writes 84
+# atom-balanced reactions over them (testing.synthetic_mechanism)
+DRM19 = ("H2 H O O2 OH H2O HO2 CH2 CH2(S) CH3 CH4 CO CO2 HCO CH2O CH3O "
+         "C2H4 C2H5 C2H6 N2 AR").split()
+DRM19_REACTIONS = 84
+# GRI-Mech 3.0's 53 species and its 325 reactions' count
+GRI30 = ("H2 H O O2 OH H2O HO2 H2O2 C CH CH2 CH2(S) CH3 CH4 CO CO2 HCO CH2O "
+         "CH2OH CH3O CH3OH C2H C2H2 C2H3 C2H4 C2H5 C2H6 HCCO CH2CO HCCOH N "
+         "NH NH2 NH3 NNH NO NO2 N2O HNO CN HCN H2CN HCNN HCNO HOCN HNCO NCO "
+         "N2 AR C3H7 C3H8 CH2CHO CH3CHO").split()
+GRI30_REACTIONS = 325
+KIN_CPU_CELLS = 1_000_000
+# flops of one cell's evaluation besides the products: ~10 transcendental
+# operations (log, exp, pow) a reaction
+KIN_TRANSCENDENTALS = 10
+QPD_FIRST = ["CH4 + OH => CH3 + H2O   1.0E08 1.6 3120."]
+SCO2_COMPS = "comps=adv_0 adv_1 temp density X(CH4) vfrac"
+QPD_RTOL = 1e-10
+
+
+CHEM_NAMES = [f"X({s})" for s in DRM19] + ["temp", "density", "adv_0",
+                                             "adv_1", "vfrac"]
+
+
+def chem_level(x, y, z, nan_cells: bool) -> torch.Tensor:
+    """The chemistry case's fields (CHEM_NAMES) on the cell centres x, y, z
+    (tensors): drm19's 21 mole fractions summing to 1 (as
+    testing.fraction_fields), temp and density of testing.default_fields,
+    sCO2's adv_0, adv_1 in [0, 1] and vfrac; with ``nan_cells`` adv_0 holds
+    bands of NaN, +-inf and +-1e30 cells."""
+    ns = len(DRM19)
+    phi = 2 * np.pi * (x + 2 * y + 3 * z)
+    out = [(1.0 + 0.5 * torch.sin(phi + 2 * np.pi * k / ns)) / ns
+           for k in range(ns)]
+    g = torch.exp(-((x - 0.5) ** 2 + (y - 0.5) ** 2 + (z - 0.5) ** 2)
+                  / 0.15 ** 2)
+    adv0 = torch.clamp(x + 0.2 * torch.sin(5 * y), 0.0, 1.0)
+    if nan_cells:
+        band = y < 0.25
+        for (lo, hi), bad in (((0.40, 0.42), np.nan), ((0.60, 0.62), np.inf),
+                              ((0.70, 0.72), -np.inf), ((0.80, 0.82), 1e30),
+                              ((0.20, 0.22), -1e30)):
+            adv0 = torch.where(band & (x > lo) & (x < hi), bad, adv0)
+    out += [300.0 + 1500.0 * g, 1.0 / (1.0 + 4.0 * g), adv0,
+            torch.clamp(1.1 * z - 0.05, 0.0, 1.0), 0.5 + 0.5 * torch.cos(x * y)]
+    return torch.stack(out)
+
+
+def write_chem_plotfile(path: str, case: dict, dev,
+                        nan_cells: bool = False) -> None:
+    """``case``'s hierarchy (testing.make_amr_hierarchy) with the fields of
+    ``chem_level`` made on ``dev`` and written by the device writer."""
+    geoms, bas, ratios = make_amr_hierarchy(**case)
+    meta = AmrMeta(geoms, bas, ratios, 0.5)
+    lmeta = _level_metas(meta)
+    data = []
+    for lm in lmeta:
+        c = [torch.tensor(v, device=dev) for v in cell_centers(lm.bbox,
+                                                               lm.geom)]
+        data.append(chem_level(*torch.meshgrid(*c, indexing="ij"),
+                               nan_cells))
+    DenseAmrState(meta, CHEM_NAMES, data, lmeta, dev).to_plotfile(path)
+
+
+def tools88_runs(plt: str, mech: str, o, d: str) -> dict:
+    """The seven chemistry verbs on the plotfile ``plt`` with the
+    mechanism ``mech``, outputs named by ``o``: name -> (tool, args)."""
+    dev = [f"device={d}"]
+    return {
+        "plotXtoY": ("plotXtoY", [f"infile={plt}", f"outfile={o('Y')}",
+                                  *dev]),
+        "plotYtoX": ("plotYtoX", [f"infile={o('Y')}", f"outfile={o('X')}",
+                                  *dev]),
+        "plotTransportCoeff": ("plotTransportCoeff", [
+            f"infile={plt}", f"outfile={o('tr')}", *dev]),
+        "plotTYtoLe": ("plotTYtoLe", [f"infile={plt}", f"outfile={o('le')}",
+                                      *dev]),
+        "plotQPD": ("plotQPD", [f"mech_file={mech}", f"infile={plt}",
+                                "QPDatom=C", "fuelSpec=CH4",
+                                f"QPDfileName={o('qpd.dat')}", *dev]),
+        "sCO2": ("sCO2", [f"infile={plt}", SCO2_COMPS, "planeCoord=0",
+                          "nBins=64", "nBinPlanes=10",
+                          f"output_dir={o('sco2')}", *dev]),
+        "buildPMF": ("buildPMF", [f"infile={o('flame.dat')}",
+                                  f"outfile={o('pmf.dat')}",
+                                  f"fortran={o('pmf.f90')}", *dev])}
+
+
+def write_flame_table(path: str, n: int = 2000) -> None:
+    """A 1-D premixed-flame table of n points (x, T, 21 mole fractions)
+    for buildPMF."""
+    x = np.linspace(0.0, 2.0, n)
+    prog = 0.5 * (1.0 + np.tanh((x - 1.0) / 0.05))
+    cols = [x, 300.0 + 1700.0 * prog] + [
+        (1.0 + 0.5 * np.sin(3 * x + k)) / len(DRM19) for k in range(
+            len(DRM19))]
+    with open(path, "w") as f:
+        f.write('VARIABLES = "X" "T" ' + " ".join(f'"X({s})"' for s in DRM19)
+                + "\n")
+        np.savetxt(f, np.column_stack(cols))
+
+
+def remove(*paths) -> None:
+    for p in paths:
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        elif os.path.exists(p):
+            os.remove(p)
+
+
+def qpd_edges(path: str):
+    """(species line, edge tokens, [n, 2] values) of a plotQPD file."""
+    lines = open(path).read().splitlines()
+    rows = [ln.split() for ln in lines[2:]]
+    return lines[1], [r[:2] for r in rows], np.array(
+        [[float(v) for v in r[2:]] for r in rows]).reshape(-1, 2)
+
+
+def normval(said: str) -> float:
+    return float(said.split("NormVal: ")[1].split()[0])
+
+
+def close_qpd(a: str, b: str, said_a: str, said_b: str) -> dict:
+    """Two plotQPD runs: species and edge tokens equal, each value and the
+    NormVal printout within QPD_RTOL relative."""
+    sa, ea, va = qpd_edges(a)
+    sb, eb, vb = qpd_edges(b)
+    if sa != sb or ea != eb:
+        raise AssertionError(f"{a} vs {b}: edges differ")
+    err = float((np.abs(va - vb) / np.maximum(np.abs(vb), 1e-300))
+                .max(initial=0.0))
+    nerr = abs(normval(said_a) - normval(said_b)) / abs(normval(said_b))
+    if not (err <= QPD_RTOL and nerr <= QPD_RTOL):
+        raise AssertionError(f"plotQPD: edges {err}, NormVal {nerr}")
+    return {"edges": len(ea), "max_rel_err": err, "normval_rel_err": nerr}
+
+
+def close_sco2(a: str, b: str) -> dict:
+    """Two sCO2 output directories: the same files, mean.dat and mcmt.dat
+    values and every bins2d array within 1e-12 of each one's largest."""
+    names = sorted(os.listdir(b))
+    if sorted(os.listdir(a)) != names:
+        raise AssertionError(f"{a} and {b} hold other files")
+    worst = 0.0
+    for n in names:
+        x = np.loadtxt(os.path.join(a, n)) if n.endswith(".dat") \
+            else np.load(os.path.join(a, n))
+        y = np.loadtxt(os.path.join(b, n)) if n.endswith(".dat") \
+            else np.load(os.path.join(b, n))
+        err = float(np.abs(x - y).max()) / max(float(np.abs(y).max()), 1e-300)
+        if x.shape != y.shape or not err <= 1e-12:
+            raise AssertionError(f"sCO2 {n}: {err}")
+        worst = max(worst, err)
+    return {"files": len(names), "max_err": worst}
+
+
+def prod_checks(name: str, o, said: str) -> dict:
+    """What a production run wrote, read back: the plotfiles' layout, the
+    mass fractions' sum of 1 and finiteness on level 0 (plotXtoY), finite
+    plotQPD sums and NormVal, 52 finite sCO2 slabs, buildPMF's files."""
+    if name in ("plotXtoY", "plotYtoX", "plotTransportCoeff", "plotTYtoLe"):
+        path = o({"plotXtoY": "Y", "plotYtoX": "X", "plotTransportCoeff": "tr",
+                  "plotTYtoLe": "le"}[name])
+        r = PlotfileReader(path)
+        lev0 = np.stack(r.read_level(0))
+        out = {"names": len(r.var_names), "levels": r.meta.n_levels,
+               "level0_finite": bool(np.isfinite(lev0).all())}
+        if name == "plotXtoY":
+            ny = sum(n.startswith("Y(") for n in r.var_names)
+            out["level0_sum_err"] = float(np.abs(
+                lev0[:, :ny].sum(axis=1) - 1.0).max())
+            if not out["level0_sum_err"] <= 1e-12:
+                raise AssertionError(f"plotXtoY: Y sums {out}")
+        if r.meta.n_levels != 3 or not out["level0_finite"]:
+            raise AssertionError(f"{name}: {out}")
+        return out
+    if name == "plotQPD":
+        _, edges, vals = qpd_edges(o("qpd.dat"))
+        out = {"edges": len(edges), "normval": normval(said)}
+        if not (edges and np.isfinite(vals).all()
+                and np.isfinite(out["normval"])):
+            raise AssertionError(f"plotQPD: {out}")
+        return out
+    if name == "sCO2":
+        mean = np.loadtxt(os.path.join(o("sco2"), "mean.dat"))
+        bins = [f for f in os.listdir(o("sco2")) if f.startswith("bins2d")]
+        if mean.shape != (52, 4) or len(bins) != 52 \
+                or not np.isfinite(mean).all():
+            raise AssertionError(f"sCO2: {mean.shape}, {len(bins)} bins")
+        return {"slabs": len(bins)}
+    return {"bytes": os.path.getsize(o("pmf.dat"))
+            + os.path.getsize(o("pmf.f90"))}
+
+
+def tools88_outputs(name: str, o) -> list:
+    """The files a verb writes (plotYtoX's input, plotXtoY's output, goes
+    with plotYtoX's)."""
+    return {"plotXtoY": [], "plotYtoX": [o("Y"), o("X")],
+            "plotTransportCoeff": [o("tr")], "plotTYtoLe": [o("le")],
+            "plotQPD": [o("qpd.dat")], "sCO2": [o("sco2")],
+            "buildPMF": [o("pmf.dat"), o("pmf.f90")]}[name]
+
+
+def tools88_checks(tmp: str, o, mech: str, dev) -> dict:
+    """The closed forms on the card's outputs at the repo case (``o`` names
+    them): the mass fractions sum to 1 and Y -> X gives back the plotfile's
+    X within 1e-12 (renormalised over the species found), Le = 1 within
+    1e-12 (lewis=1); plotQPD of uniform
+    fields integrates Q x V_domain; every sCO2 slab's bins and volume count
+    its cells (vfrac = 1), the slabs add to the domain."""
+    out = {}
+    ry, rx, src = (PlotfileReader(p) for p in (o("Y"), o("X"), o("plt")))
+    # species found by their X(name) variables: X(CH2(S)) is not one
+    # (chem.mechanism.Mechanism.from_plotfile_vars, as in the JAX package)
+    ns = sum(n.startswith("Y(") for n in ry.var_names)
+    comps = [src.var_index(n.replace("Y(", "X(", 1))
+             for n in ry.var_names[:ns]]
+    sum_err = rt_err = 0.0
+    for lev in range(src.meta.n_levels):
+        for y, x, s in zip(ry.read_level(lev), rx.read_level(lev),
+                           src.read_level(lev, comps)):
+            sum_err = max(sum_err, float(np.abs(y[:ns].sum(axis=0)
+                                                - 1.0).max()))
+            s = s / s.sum(axis=0)       # over the species found
+            rt_err = max(rt_err, float((np.abs(x[:ns] - s)
+                                        / np.abs(s)).max()))
+    le_err = max(float(np.abs(f - 1.0).max())
+                 for lev in range(src.meta.n_levels)
+                 for f in PlotfileReader(o("le")).read_level(lev))
+    out.update(y_sum_err=sum_err, x_round_trip_rel_err=rt_err,
+               lewis_one_err=le_err)
+    if not (sum_err <= 1e-12 and rt_err <= 1e-12 and le_err <= 1e-12):
+        raise AssertionError(f"chemistry closed forms: {out}")
+    # a uniform field: each reaction's integral is Q x V_domain
+    sp = ["CH4", "CH3", "H2O", "OH", "O2", "CO", "CO2", "H"]
+    Xv = np.array([0.1, 0.01, 0.05, 0.02, 0.2, 0.1, 0.02, 0.5])
+    fields = {f"X({s})": (lambda x, y, z, v=v: v + 0 * x)
+              for s, v in zip(sp, Xv)}
+    fields["temp"] = lambda x, y, z: 1000.0 + 0 * x
+    fields["density"] = lambda x, y, z: 0.5 + 0 * x
+    uni, umech = o("uniform"), o("uniform.inp")
+    write_synthetic_plotfile(uni, n_cell=32, n_levels=3, fields=fields)
+    with open(umech, "w") as f:
+        f.write("SPECIES\n" + " ".join(sp) + "\nEND\nREACTIONS\n"
+                "CH4 + OH => CH3 + H2O    1.0E12  0.0  0.\n"
+                "CO + OH => CO2 + H       2.0E12  0.0  0.\nEND\n")
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        run_wall("plotQPD", [f"mech_file={umech}", f"infile={uni}",
+                             "QPDatom=C", f"QPDfileName={o('uqpd.dat')}"])
+    W = np.array([molecular_weight(s) for s in sp])
+    C = Xv * 0.5e-3 / (Xv @ W)
+    q1, q2 = 1.0e12 * C[0] * C[3], 2.0e12 * C[5] * C[3]
+    _, edges, vals = qpd_edges(o("uqpd.dat"))
+    got = dict(zip(map(tuple, edges), vals[:, 0]))
+    errs = {"normval_vs_1/(q1 V)": abs(normval(said.getvalue()) * q1 - 1.0),
+            "CO->CO2": abs(got[("CO", "CO2")] / (q2 / q1) - 1.0)}
+    out["qpd_uniform"] = errs
+    if not max(errs.values()) <= QPD_RTOL:
+        raise AssertionError(f"plotQPD uniform field: {errs}")
+    # sCO2's slabs: with vfrac = 1 every bin set counts each cell once,
+    # NaN/inf/huge adv cells in bin 0 included
+    ds = DenseAmrState.from_plotfile(o("plt"), dev,
+                                     names=["adv_0", "adv_1", "temp",
+                                            "density", "X(CH4)", "vfrac"],
+                                     dtype=torch.float64)
+    dense = flatten_to_level(ds, ds.meta.n_levels - 1)
+    dense[5] = 1.0
+    rbin = torch.zeros(dense.shape[2:], dtype=torch.int64, device=dev)
+    sums = slab_sums(dense, rbin, 64, 10)
+    nb2 = 64 * 64
+    cells = np.array([min(10, dense.shape[1] - c0) * dense.shape[2]
+                      * dense.shape[3] for c0 in range(0, dense.shape[1],
+                                                       10)])
+    counts_ = [sums[:, nb2:2 * nb2].sum(axis=1),
+               sums[:, 2 * nb2 + 65: 2 * nb2 + 130].sum(axis=1), sums[:, -1]]
+    out["sco2_slabs"] = {"slabs": len(cells), "domain_cells":
+                         int(cells.sum()), "nan_cells": int(
+                             torch.isnan(dense[0]).sum())}
+    if not all(np.array_equal(c, cells) for c in counts_) \
+            or cells.sum() != dense[0].numel():
+        raise AssertionError("sCO2 slabs do not add up to the domain")
+    del ds, dense
+    remove(uni, umech, o("uqpd.dat"))
+    return out
+
+
+def tools88_card_vs_cpu(tmp: str, mech: str, dev) -> dict:
+    """Every verb with device=cuda and with device=cpu on the repo case
+    (adv_0 with NaN, +-inf and +-1e30 cells): plotfiles within 1e-12 of
+    each component's largest, plotQPD's edges within 1e-10, sCO2 within
+    1e-12, buildPMF byte for byte; then the card's closed forms."""
+    plt = os.path.join(tmp, "cc88_plt")
+    write_chem_plotfile(plt, REPO_CASE, dev, nan_cells=True)
+    res, said, walls = {}, {}, {}
+    for who in ("card", "cpu"):
+        o = lambda name, w=who: os.path.join(tmp, f"cc88_{w}_{name}")  # noqa
+        write_flame_table(o("flame.dat"))
+        t0 = time.perf_counter()
+        for k, (tool, args) in tools88_runs(plt, mech, o, "cuda" if who ==
+                                            "card" else "cpu").items():
+            with contextlib.redirect_stdout(io.StringIO()) as out:
+                run_wall(tool, args)
+            said[who, k] = out.getvalue()
+        walls[who] = time.perf_counter() - t0
+    o = lambda who, name: os.path.join(tmp, f"cc88_{who}_{name}")  # noqa
+    res["wall_s"] = walls
+    for k in ("Y", "X", "tr", "le"):
+        res[k] = close_plotfiles(o("card", k), o("cpu", k), 1e-12)
+    res["plotQPD"] = close_qpd(o("card", "qpd.dat"), o("cpu", "qpd.dat"),
+                               said["card", "plotQPD"],
+                               said["cpu", "plotQPD"])
+    res["sCO2"] = close_sco2(o("card", "sco2"), o("cpu", "sco2"))
+    for k in ("pmf.dat", "pmf.f90"):
+        if not filecmp.cmp(o("card", k), o("cpu", k), shallow=False):
+            raise AssertionError(f"buildPMF {k}: card and CPU differ")
+    res["buildPMF"] = "bytes equal"
+    res["checks"] = tools88_checks(
+        tmp, lambda name: plt if name == "plt" else o("card", name), mech,
+        dev)
+    for f in os.listdir(tmp):
+        if f.startswith("cc88_"):
+            remove(os.path.join(tmp, f))
+    return res
+
+
+def kinetics_alone(tmp: str, dev) -> dict:
+    """qf_qr_sums of a GRI-Mech 3.0-sized mechanism (53 species, 325
+    reactions, written by the script) on 19,447,296 random states made on
+    the card: CUDA-event ms of a call after a 1 M-cell warm-up, peak
+    memory, chunk, the bound;
+    the same function on the CPU for KIN_CPU_CELLS of them, held to the
+    card's sums of those cells."""
+    path = os.path.join(tmp, "t88_gri.inp")
+    with open(path, "w") as f:
+        f.write(synthetic_mechanism(GRI30, GRI30_REACTIONS, seed=1))
+    kin = Kinetics(*parse_chemkin(path)).to(dev)
+    ns, nr, n = len(kin.species), kin.n_reactions, PROD_CELLS
+    g = torch.Generator(device=dev).manual_seed(16)
+    T = 300.0 + 2200.0 * torch.rand(n, generator=g, device=dev,
+                                    dtype=torch.float64)
+    X = torch.rand(n, ns, generator=g, device=dev,
+                   dtype=torch.float64) ** 3
+    X /= X.sum(dim=1, keepdim=True)
+    rho = 1e-4 + 1.1e-3 * torch.rand(n, generator=g, device=dev,
+                                     dtype=torch.float64)
+    kin.qf_qr_sums(T[:KIN_CPU_CELLS], rho[:KIN_CPU_CELLS],
+                   X[:KIN_CPU_CELLS])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    qf, qr = kin.qf_qr_sums(T, rho, X)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() - base
+    if not (torch.isfinite(qf).all() and torch.isfinite(qr).all()):
+        raise AssertionError("GRI-sized kinetics: non-finite sums")
+    # bytes: T, rho and X read once; operations: the four products (lnC
+    # with nuf and nur, g/RT with nu_net, C with the efficiencies) and the
+    # transcendentals
+    nbytes = n * (2 + ns) * 8 + 2 * nr * 8
+    flops = n * (4 * 2 * ns * nr + KIN_TRANSCENDENTALS * nr)
+    bound_ms, bound_by = bound(nbytes, flops, torch.float64)
+    sub = [t[:KIN_CPU_CELLS] for t in (T, rho, X)]
+    card = [s.cpu().numpy() for s in kin.qf_qr_sums(*sub)]
+    host = [t.cpu() for t in sub]
+    t0 = time.perf_counter()
+    cpu = [s.numpy() for s in kin.qf_qr_sums(*host)]
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    err = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(card, cpu))
+    if not err <= QPD_RTOL:
+        raise AssertionError(f"GRI-sized kinetics: card vs CPU {err}")
+    del T, X, rho, sub
+    remove(path)
+    return {"species": ns, "reactions": nr, "cells": n,
+            "falloff": int(kin.fo_mask.sum()), "chunk": kin.chunk_cells(dev),
+            "cpu_chunk": kin.chunk_cells("cpu"),
+            "ms": ms, "peak_bytes": peak, "bytes": nbytes,
+            "flops": flops, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "cpu_cells": KIN_CPU_CELLS, "cpu_ms": cpu_ms,
+            "card_vs_cpu_rel_err": err}
+
+
+def phase_tools88(tmp: str, dev) -> dict:
+    """The chemistry verbs on the card at production size (drm19's 21
+    species, temp, density and sCO2's fields on the 19.4 M-cell case; 84
+    reactions): launches counted (counts set to 0 just before the cold
+    runs, read just after: none of the five kernels runs on this path),
+    device time and kernels of each cold run from one profiler session,
+    warm walls split into read / compute / write with peak device memory,
+    each output read back and deleted; the closed forms and every verb
+    card against CPU at the repo case; qf_qr_sums alone at GRI-Mech 3.0's
+    size against its bound."""
+    t0 = time.perf_counter()
+    o = lambda name: os.path.join(tmp, f"t88_{name}")  # noqa: E731
+    mech = o("drm19.inp")
+    with open(mech, "w") as f:
+        f.write(synthetic_mechanism(DRM19, DRM19_REACTIONS, first=QPD_FIRST))
+    plt = o("plt")
+    write_chem_plotfile(plt, PROD_CASE, dev)
+    write_flame_table(o("flame.dat"))
+    steps = {"generate_s": time.perf_counter() - t0}
+    runs = tools88_runs(plt, mech, o, "cuda")
+    t1 = time.perf_counter()
+    cold, said, checks = {}, {}, {}
+
+    def cold_run(k, tool, args):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            cold[k] = run_tool_counted(tool, args, ())
+        said[k] = out.getvalue()
+        checks[k] = prod_checks(k, o, said[k])
+        remove(*tools88_outputs(k, o))
+
+    reset_counts()
+    profs = kernel_profiles({
+        k: (lambda k=k, t=tool, a=args: cold_run(k, t, a))
+        for k, (tool, args) in runs.items()})
+    launches = counts()
+    steps["cold_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    tools = {}
+    for k, (tool, args) in runs.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            tools[k] = {"cold_s": cold[k], **tool_cost(tool, args, False),
+                        **{f: profs[k][f] for f in (
+                            "device_ms", "copy_ms", "kernels",
+                            "trace_whole")},
+                        "profiled_wall_ms": profs[k]["wall_ms"]}
+        remove(*tools88_outputs(k, o))
+    steps["warm_s"] = time.perf_counter() - t1
+    remove(plt)
+    t1 = time.perf_counter()
+    cmp = tools88_card_vs_cpu(tmp, mech, dev)
+    steps["card_vs_cpu_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kin = kinetics_alone(tmp, dev)
+    steps["kinetics_s"] = time.perf_counter() - t1
+    remove(mech, o("flame.dat"))
+    emit({"phase": "tools88", "cases": {
+        "cells": PROD_CELLS, "species": len(DRM19),
+        "reactions": DRM19_REACTIONS, "components": len(CHEM_NAMES)},
+        "steps": steps, "launches": launches, "tools": tools,
+        "checks": checks, "card_vs_cpu": cmp, "kinetics": kin,
+        "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4152,6 +4635,7 @@ def main() -> int:
         tools8, tools8_err = phase_tools8(tmp, stream, dev)
         tools84 = phase_tools84(tmp, stream, dev)
         tools86 = phase_tools86(tmp, stream)
+        tools88 = phase_tools88(tmp, dev)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     # the kernels held at the sparse paths' shapes (phases 12 and 12b) and
@@ -4176,6 +4660,7 @@ def main() -> int:
         "launches_tools8": tools8["grad_mag"],
         "launches_tools84": tools84["grad_mag"],
         "launches_tools86": tools86["grad_mag"],
+        "launches_tools88": tools88["grad_mag"],
         **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
@@ -4187,6 +4672,7 @@ def main() -> int:
         "launches_tools8": tools8["stream_march"],
         "launches_tools84": tools84["stream_march"],
         "launches_tools86": tools86["stream_march"],
+        "launches_tools88": tools88["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -4199,6 +4685,7 @@ def main() -> int:
         "launches_tools8": tools8["stream_march_order_key"],
         "launches_tools84": tools84["stream_march_order_key"],
         "launches_tools86": tools86["stream_march_order_key"],
+        "launches_tools88": tools88["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -4209,7 +4696,8 @@ def main() -> int:
         "launches": stats_launches["stats_binned"],
         "launches_sparse": sparse["stats_binned"],
         "launches_tools84": tools84["stats_binned"],
-        "launches_tools86": tools86["stats_binned"], **stats_k["binned"]}, {
+        "launches_tools86": tools86["stats_binned"],
+        "launches_tools88": tools88["stats_binned"], **stats_k["binned"]}, {
         # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
         "name": "stats_joint", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
@@ -4217,7 +4705,8 @@ def main() -> int:
         "launches": stats_launches["stats_joint"],
         "launches_sparse": sparse["stats_joint"],
         "launches_tools84": tools84["stats_joint"],
-        "launches_tools86": tools86["stats_joint"], **stats_k["joint"]}]})
+        "launches_tools86": tools86["stats_joint"],
+        "launches_tools88": tools88["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

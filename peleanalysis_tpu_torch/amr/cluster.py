@@ -20,7 +20,9 @@ under another cluster's boxes as uncovered.  The JAX package's canonical
 frames and bucket padding (``amr/canonical.py``, ``_pad_single_level``)
 exist to share XLA compiles and are not ported.  Substates are built one at
 a time, when a caller visits them (``Substates``), and freed with the
-caller's reference.
+caller's reference.  Pointwise tools (the chemistry verbs) need no coarse
+context and take ``level_parts``: each level whole, or a sparse level
+cluster by cluster, with the global valid masks.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import numpy as np
 
 from ..parmparse import ParmParse
 from .box import Box, BoxArray
-from .dense import DenseAmrState, DenseLevelMeta, assemble_level
+from .dense import (DenseAmrState, DenseLevelMeta, _level_metas,
+                    assemble_level)
 from .hierarchy import AmrMeta
 
 
@@ -210,3 +213,30 @@ def sparse_stats_parts(base: DenseAmrState, fin_fabs):
 
     return (coarse_only_state(base), Substates(groups, build),
             meta.ref_ratio[fin - 1])
+
+
+def level_parts(meta: AmrMeta, names: Sequence[str], level_fabs, device,
+                dtype):
+    """A pointwise tool's parts, one at a time: each level over its union
+    bbox, or, where that bbox wastes >4x the level's cells
+    (``needs_clustering``), each cluster of the level's boxes over the
+    cluster's bbox, so no tensor spans a sparse level's union bbox.  Yields
+    (lev, idx, part): ``part`` is a state of ``meta``'s hierarchy whose
+    level ``lev`` holds the boxes ``idx`` of ``level_fabs[lev]`` (assembled
+    on ``device`` in ``dtype``; the other levels' data None), and whose
+    ``valid_mask(lev)`` is the global one (cells covered by level lev + 1
+    excluded)."""
+    for lev in range(meta.n_levels):
+        ba = meta.bas[lev]
+        groups = (cluster_boxes(ba) if needs_clustering(ba)
+                  else [list(range(len(ba)))])
+        for g in groups:
+            ba_g = BoxArray([ba[i] for i in g])
+            meta_g = AmrMeta(meta.geoms, meta.bas[:lev] + [ba_g]
+                             + meta.bas[lev + 1:], meta.ref_ratio, meta.time,
+                             meta.level_steps, meta.ndim2)
+            lmeta = _level_metas(meta_g)
+            data = [None] * meta.n_levels
+            data[lev] = assemble_level(ba_g, [level_fabs[lev][i] for i in g],
+                                       lmeta[lev].bbox, dtype, device)
+            yield lev, g, DenseAmrState(meta_g, names, data, lmeta, device)

@@ -12,9 +12,12 @@ tools ported so far (``grad``, ``curvature``, ``isosurface``, ``stream``,
 ``fextrema``, ``template``, ``doctor``, ``buildDistance``, the MEF tools
 ``isoMEF``, ``combineMEF``, ``mergeMEF``, ``multMEF``, ``scaleMEF``,
 ``sliceMEF``, ``smoothMEF``, ``trimMEFgen``, ``binMEF``, ``decimateMEF``,
-``surfDATtoMEF``, ``surfMEFtoDAT``, ``checkIso``, and the streamline
+``surfDATtoMEF``, ``surfMEFtoDAT``, ``checkIso``, the streamline
 post-processing tools ``stream2plt``, ``streamScatter``, ``streamSub``,
-``streamTubeStats``).  Extra keys:
+``streamTubeStats``, and the chemistry tools ``plotXtoY``, ``plotYtoX``,
+``plotTransportCoeff``, ``plotTYtoLe``, ``plotQPD``, ``sCO2``,
+``buildPMF``: every verb of the JAX CLI; its ``pipeline``, ``serve`` and
+``send`` are not ported).  Extra keys:
 ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the kernels' plain
 PyTorch versions; ``doctor`` takes none and reports what is there) and the
 global ``dtype=float32|float64``.
@@ -71,6 +74,11 @@ TOOLS = {
     "streamScatter": ".tools.stream_scatter",
     "streamSub": ".tools.stream_sub",
     "streamTubeStats": ".tools.stream_tube_stats",
+    **{t: ".tools.chem_tools" for t in (
+        "plotXtoY", "plotYtoX", "plotTransportCoeff", "plotTYtoLe",
+        "plotQPD")},
+    "sCO2": ".tools.sco2",
+    "buildPMF": ".tools.build_pmf",
 }
 
 

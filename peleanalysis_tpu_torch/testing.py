@@ -209,3 +209,150 @@ def write_scattered_plotfile(path: str, time: float = 0.0, **kw):
     write_plotfile(path, names, time, meta.geoms, meta.ref_ratio, meta.bas,
                    data)
     return meta, names, data
+
+
+# -- chemistry -------------------------------------------------------------------
+def fraction_fields(species: Sequence[str], prefix: str = "X",
+                    ) -> Dict[str, Callable]:
+    """Fields ``{prefix(s): fn}`` of mole (or mass) fractions that sum to 1
+    everywhere for two species or more: species k is (1 + 0.5 sin(phi +
+    2 pi k / ns)) / ns, phi = 2 pi (x + 2y + 3z), within [0.5, 1.5] / ns."""
+    ns = len(species)
+
+    def frac(k):
+        return lambda x, y, z: (1.0 + 0.5 * np.sin(
+            2 * np.pi * (x + 2 * y + 3 * z) + 2 * np.pi * k / ns)) / ns
+
+    return {f"{prefix}({s})": frac(k) for k, s in enumerate(species)}
+
+
+def nasa7_lines(name: str, hi: Sequence[float], lo: Sequence[float],
+                t_mid: float = 1000.0) -> str:
+    """One species' four fixed-column CHEMKIN NASA7 lines."""
+    l1 = (f"{name:<18}{'':6}{'':20}G{200.0:10.3f}{6000.0:10.3f}"
+          f"{t_mid:8.2f}").ljust(79) + "1"
+
+    def f(v):
+        return f"{v:15.8E}"
+
+    return "\n".join([
+        "".join(f(v) for v in hi[:5]).ljust(79) + "2",
+        "".join(f(v) for v in list(hi[5:]) + list(lo[:3])).ljust(79) + "3",
+        "".join(f(v) for v in lo[3:]).ljust(79) + "4"]).join(
+            [l1 + "\n", ""])
+
+
+def synthetic_mechanism(species: Sequence[str], n_reactions: int,
+                        seed: int = 0, first: Sequence[str] = ()) -> str:
+    """CHEMKIN text of a mechanism over ``species`` (formula names, as
+    ``chem.mechanism.parse_formula`` reads them): the reaction lines
+    ``first``, then atom-balanced reactions drawn with ``seed`` from the
+    exchanges A + B = C + D and the combinations A + B = C that the
+    formulas allow, up to ``n_reactions`` in all.  The exchanges take in
+    turn the forms irreversible, equilibrium-reversible, REV and a
+    DUPLICATE pair whose second A is negative; the combinations a third
+    body with efficiencies, LOW + TROE (3 and 4 parameters), LOW + SRI (3
+    and 5 parameters) and Lindemann.  A THERMO block gives every species
+    constant-cp NASA7 data (cp/R 2.5 + its atom count / 2, each range its
+    own, formation enthalpies within +-1.5e4 K), which keeps every rate
+    and equilibrium constant finite over 300-3000 K."""
+    from .chem.mechanism import parse_formula
+
+    rng = np.random.default_rng(seed)
+    comp = [parse_formula(s) for s in species]
+    elems = sorted({e for c in comp for e in c})
+    vec = [tuple(c.get(e, 0) for e in elems) for c in comp]
+    idx = range(len(species))
+    pairs = [(a, b) for a in idx for b in idx if a <= b]
+    by_sum: Dict[tuple, List[tuple]] = {}
+    for a, b in pairs:
+        by_sum.setdefault(tuple(x + y for x, y in zip(vec[a], vec[b])),
+                          []).append((a, b))
+    exch, comb = [], []
+    for key, ps in by_sum.items():
+        for i, (a, b) in enumerate(ps):
+            exch += [(a, b, c, d) for c, d in ps[i + 1:]
+                     if not {a, b} & {c, d}]
+        comb += [(a, b, c) for a, b in ps for c in idx
+                 if vec[c] == key and c not in (a, b)]
+    exch = [exch[i] for i in rng.permutation(len(exch))]
+    comb = [comb[i] for i in rng.permutation(len(comb))]
+    sp = list(species)
+    effs = " ".join(f"{s}/{e}/" for s, e in zip(
+        [s for s in ("H2O", "CO2", "N2", "AR") if s in sp][:3],
+        (6.0, 2.0, 0.7)))
+
+    def arr(lo_a=10.0, hi_a=14.0):
+        return (f"{10 ** rng.uniform(lo_a, hi_a):.4E} "
+                f"{rng.uniform(-1.0, 2.0):.3f} {rng.uniform(0, 3e4):.1f}")
+
+    lines = list(first)
+    n_comb = min(len(comb), max(1, (n_reactions - len(lines)) * 3 // 10))
+    for i, (a, b, c) in enumerate(comb[:n_comb]):
+        lhs = f"{sp[a]} + {sp[b]}"
+        form = i % 6
+        if form == 0:
+            lines += [f"{lhs} + M <=> {sp[c]} + M   {arr(15, 18)}"]
+            if effs:
+                lines += [f"  {effs}"]
+            continue
+        lines += [f"{lhs} (+M) <=> {sp[c]} (+M)   {arr()}",
+                  f"  LOW / {arr(15, 20)} /"]
+        if form == 1:
+            lines += [f"  TROE / {rng.uniform(0.4, 0.8):.3f} "
+                      f"{rng.uniform(50, 300):.1f} "
+                      f"{rng.uniform(1e3, 3e3):.1f} /"]
+        elif form == 2:
+            lines += [f"  TROE / {rng.uniform(0.4, 0.8):.3f} "
+                      f"{rng.uniform(50, 300):.1f} "
+                      f"{rng.uniform(1e3, 3e3):.1f} "
+                      f"{rng.uniform(3e3, 8e3):.1f} /"]
+        elif form == 3:
+            lines += [f"  SRI / {rng.uniform(0.3, 0.7):.3f} "
+                      f"{rng.uniform(100, 900):.1f} "
+                      f"{rng.uniform(500, 2e3):.1f} /"]
+        elif form == 4:
+            lines += [f"  SRI / {rng.uniform(0.3, 0.7):.3f} "
+                      f"{rng.uniform(100, 900):.1f} "
+                      f"{rng.uniform(500, 2e3):.1f} "
+                      f"{rng.uniform(0.8, 1.2):.3f} "
+                      f"{rng.uniform(-0.5, 0.5):.3f} /"]
+        if effs and form in (1, 3):
+            lines += [f"  {effs}"]
+    n_rx = len([ln for ln in lines if "=" in ln])
+    for i, (a, b, c, d) in enumerate(exch):
+        if n_rx >= n_reactions:
+            break
+        eqn = f"{sp[a]} + {sp[b]} {{}} {sp[c]} + {sp[d]}"
+        form = i % 4
+        if form == 0:
+            lines += [f"{eqn.format('=>')}   {arr()}"]
+        elif form == 1:
+            lines += [f"{eqn.format('<=>')}   {arr()}"]
+        elif form == 2:
+            lines += [f"{eqn.format('<=>')}   {arr()}",
+                      f"  REV / {arr()} /"]
+        else:
+            if n_rx + 2 > n_reactions:
+                continue
+            a1 = 10 ** rng.uniform(11, 13)
+            rest = f"{rng.uniform(-0.5, 1.0):.3f} {rng.uniform(0, 2e4):.1f}"
+            lines += [f"{eqn.format('<=>')}   {a1:.4E} {rest}", "DUPLICATE",
+                      f"{eqn.format('<=>')}   {-0.3 * a1:.4E} {rest}",
+                      "DUPLICATE"]
+            n_rx += 1
+        n_rx += 1
+    if n_rx < n_reactions:
+        raise ValueError(f"{species} allow only {n_rx} reactions")
+    thermo = []
+    for k, s in enumerate(species):
+        cp = 2.5 + 0.5 * sum(comp[k].values())
+        h = rng.uniform(-1.5e4, 1.5e4)
+        s0 = rng.uniform(0.0, 10.0)
+        lo = [cp, 0, 0, 0, 0, h, s0]
+        hi = [cp + 0.25, 0, 0, 0, 0, h - 250.0, s0 - 1.75]
+        thermo.append(nasa7_lines(s, hi, lo, (1000.0, 1200.0, 900.0)[k % 3]))
+    return ("ELEMENTS\n" + " ".join(elems) + "\nEND\nSPECIES\n"
+            + " ".join(species) + "\nEND\nTHERMO\n"
+            + "\n".join(thermo) + "\nEND\nREACTIONS\n" + "\n".join(lines)
+            + "\nEND\n")

@@ -136,8 +136,8 @@ def test_sparse_refinement_raises(tmp_path, capsys):
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):
-    # a chemistry verb: not ported yet
-    assert cli.main(["plotXtoY", "infile=x"]) == 2
+    # a verb of the JAX CLI that the port does not run
+    assert cli.main(["pipeline", "grad", "infile=x"]) == 2
     assert "not ported" in capsys.readouterr().out
     assert cli.main(["noSuchTool"]) == 2
     assert cli.main(["--help"]) == 0

@@ -79,7 +79,9 @@ def test_every_port_module_imports_without_jax():
               "tools.doctor", "geom.sdf", "tools.build_distance",
               "ops.vec3", "io.vtk", "geom.mef_tools", "tools.mef_tools",
               "tools.stream2plt", "tools.stream_scatter",
-              "tools.stream_sub", "tools.stream_tube_stats"):
+              "tools.stream_sub", "tools.stream_tube_stats", "chem",
+              "chem.mechanism", "chem.kinetics", "chem.qpd",
+              "tools.chem_tools", "tools.sco2", "tools.build_pmf"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -101,7 +103,7 @@ def test_cli_help_runs_without_jax():
     assert "isosurface" in res.stdout
     assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
     tools = res.stdout.split("tools:")[-1].split()
-    assert len(tools) == 49
+    assert len(tools) == 56
     for t in ("partStream", "integral", "rmsVel", "filterPlt",
               "flattenAMRFile", "turbulenceSpectra", "turbulenceTseries",
               "turbulenceSlice", "augmentPlotfile", "varfieldAverage",
@@ -112,7 +114,9 @@ def test_cli_help_runs_without_jax():
               "multMEF", "scaleMEF", "sliceMEF", "smoothMEF", "trimMEFgen",
               "binMEF", "decimateMEF", "surfDATtoMEF", "surfMEFtoDAT",
               "checkIso", "stream2plt", "streamScatter", "streamSub",
-              "streamTubeStats"):
+              "streamTubeStats", "plotXtoY", "plotYtoX",
+              "plotTransportCoeff", "plotTYtoLe", "plotQPD", "sCO2",
+              "buildPMF"):
         assert t in tools
 
 
@@ -261,6 +265,36 @@ def test_mef_and_stream_post_clis_run_without_jax(tmp_path):
     assert "binMEF done" in res.stdout and "wrote tube.mef" in res.stdout
     build = os.path.join(REPO, "build", "peleanalysis_tpu_torch")
     assert build in res.stdout
+
+
+def test_chem_clis_run_without_jax(tmp_path):
+    """plotXtoY and buildPMF through the port's CLI, outputs read back."""
+    res = _run("import os, sys\n"
+               "import numpy as np\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.plotfile import "
+               "PlotfileReader\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "fraction_fields, write_synthetic_plotfile\n"
+               "os.chdir(sys.argv[1])\n"
+               "f = fraction_fields(['CH4', 'O2', 'N2'])\n"
+               "f['temp'] = lambda x, y, z: 300 + 1000 * x\n"
+               "write_synthetic_plotfile('plt', n_cell=16, n_levels=2, "
+               "max_grid_size=8, fields=f)\n"
+               "assert cli.main(['plotXtoY', 'infile=plt', 'outfile=y', "
+               "'device=cpu']) == 0\n"
+               "r = PlotfileReader('y')\n"
+               "assert r.var_names == ['Y(CH4)', 'Y(O2)', 'Y(N2)', 'temp']\n"
+               "y = r.read_level(1)[0]\n"
+               "assert np.allclose(y[:3].sum(axis=0), 1.0, rtol=1e-12)\n"
+               "np.savetxt('flame.dat', np.column_stack("
+               "[np.linspace(0, 1, 5), np.arange(5.0)]))\n"
+               "assert cli.main(['buildPMF', 'infile=flame.dat', "
+               "'fortran=pmf.f90', 'device=cpu']) == 0\n"
+               "assert 'pmf_N = 5' in open('pmf.f90').read()\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "wrote output" in res.stdout and "wrote pmf.dat" in res.stdout
 
 
 def test_native_library_is_the_ports_own(tmp_path):
