@@ -3,10 +3,11 @@ check each against its plain PyTorch version, drive the grad (also
 fluxMatch=1), curvature (also do_smooth=1), stream, sampleStreamlines,
 isosurface, conditionalMean and jpdf tools through their CLI on
 synthetic 3-level hierarchies, time the main path (grad, curvature,
-isosurface), and drive partStream, integral, rmsVel, filterPlt,
+isosurface), drive partStream, integral, rmsVel, filterPlt,
 flattenAMRFile, the turbulence tools, the plotfile tools, buildDistance,
 the MEF tools, the streamline post-processing tools and the chemistry
-tools at full size.
+tools at full size, and the production chain file-chained, as a pipeline
+and through a server.
 
     python3 chip_smoke.py
 
@@ -198,7 +199,29 @@ Phases (each prints one JSON line; any failure raises and exits non-zero):
                53-species, 325-reaction mechanism on 19.4 M random states
                made on the card (CUDA events, peak memory, bound), and on
                the CPU for 1 M of them
-The errors of 12, 12b and 13 go into the kernel summary's max_abs_err.
+  17 pipeline - the production chain of the JAX bench's sec_cli32 (grad,
+               curvature, the temp = 1000 K isosurface, stream traceAlongV=1
+               seeded from its nodes) warm, three ways in turns, min of 2:
+               four cli.main calls (file-chained), one `pipeline` with
+               write=0 on the isosurface, and the four commands through a
+               `serve` thread (send_command sync=True, an empty session
+               each round; then twice with a warm session): walls, each
+               stage's and command's wall and peak device memory, reads,
+               the final flushes' wait; the pipeline's and the server's
+               plotfiles and lines (and the server's MEF) byte-equal to the
+               file-chained run's; a session's device memory back to its
+               level after reset; `python -m peleanalysis_tpu_torch serve`
+               as a child process (one send of grad at the repo case equal
+               to a direct run, shutdown, exit 0); conditionalMean and a
+               jpdf pair over 4 production plotfiles with prefetch=0 and 1
+               (outputs equal); DeferredSurface.positions() against its
+               full copy and DeferredLines.finish() against one copy a
+               level.  Launches counted over the timed runs (the
+               "launches_pipeline" of the kernel summary), then every
+               kernel held against its plain version on one pipeline and
+               one run of each stats tool
+The errors of 12, 12b, 13 and 17 go into the kernel summary's
+max_abs_err.
 The line before the last is the kernel summary ({"kernels": [...]}); the
 last line is {"ok": true, "device": {...}}.
 """
@@ -206,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import gc
 import io
 import json
 import os
@@ -214,6 +238,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from collections import defaultdict
@@ -252,6 +277,7 @@ from peleanalysis_tpu_torch.ops import grad_kernels as gk
 from peleanalysis_tpu_torch.ops import solve
 from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
+from peleanalysis_tpu_torch.session import load_state
 from peleanalysis_tpu_torch.stream.trace import trace_streamlines
 from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
                                             make_amr_hierarchy,
@@ -260,7 +286,7 @@ from peleanalysis_tpu_torch.testing import (cell_centers, default_fields,
                                             write_scattered_plotfile,
                                             write_synthetic_plotfile)
 from peleanalysis_tpu_torch.tools.conditional_mean import (
-    accumulate_conditional_mean, accumulate_stats_fused, load_parts,
+    accumulate_conditional_mean, accumulate_stats_fused, stats_parts,
     write_cm_dat)
 from peleanalysis_tpu_torch.tools.curvature import compute_curvature_dense
 from peleanalysis_tpu_torch.tools.flatten_amr import flatten_to_level
@@ -981,7 +1007,8 @@ def device_write_split(ds, path: str) -> dict:
         packed = ds.packed_level(lev)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        host = fetch_level(packed)
+        host, wait = fetch_level(packed)
+        wait()
         t2 = time.perf_counter()
         payloads, mins, maxs = level_records(packed, host,
                                              [b.shape for b in ba])
@@ -2143,8 +2170,8 @@ def stats_split(plt: str, dev, tmp: str) -> dict:
     from peleanalysis_tpu_torch.parmparse import ParmParse
     pp = ParmParse({})
     t0 = time.perf_counter()
-    _, [(ds, _)] = load_parts(plt, ["temp", "density", "const"], None, dev,
-                              pp, "conditionalMean")
+    [(ds, _)] = stats_parts({}, load_state({}, plt, names=[
+        "temp", "density", "const"]), dev, pp, "conditionalMean")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     h, s, q, mn, mx = accumulate_conditional_mean(
@@ -2157,7 +2184,8 @@ def stats_split(plt: str, dev, tmp: str) -> dict:
                  ["density", "const"], 64, 300.0, 1801.0, h, s, q)
     t3 = time.perf_counter()
     names = ["temp", "progress", "density"]
-    _, [(ds3, _)] = load_parts(plt, names, None, dev, pp, "jpdf")
+    [(ds3, _)] = stats_parts({}, load_state({}, plt, names=names), dev, pp,
+                             "jpdf")
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     lo_hi = {"temp": (300.0, 1801.0), "progress": (-0.1, 1.1),
@@ -2893,6 +2921,7 @@ class Split:
               "write_flt", "write_mef", "savetxt_fast", "write_mef_tecplot")
 
     def __init__(self):
+        from peleanalysis_tpu_torch import session
         from peleanalysis_tpu_torch.amr import cluster, dense
         from peleanalysis_tpu_torch.tools import (
             amr_to_fe, avg_plotfiles, avg_to_plane, build_distance,
@@ -2901,8 +2930,9 @@ class Split:
             part_stream, plt2npz, regrid_plt, rms_vel, sco2, slice_plot,
             stream2plt, stream_scatter, stream_sub, stream_tube_stats,
             sub_plt, template, turbulence_post, turbulence_spectra)
-        self.mods = [dense, filter_plt, flatten_amr, integral, part_stream,
-                     rms_vel, turbulence_post, turbulence_spectra, amr_to_fe,
+        self.mods = [session, dense, filter_plt, flatten_amr, integral,
+                     part_stream, rms_vel, turbulence_post,
+                     turbulence_spectra, amr_to_fe,
                      avg_plotfiles, avg_to_plane, build_distance,
                      combine_plts, compare_plts, interp, isosurface,
                      plt2npz, regrid_plt, slice_plot, sub_plt, template,
@@ -2914,7 +2944,10 @@ class Split:
 
     def _wrap(self, kind, fn):
         def timed(*a, **k):
-            if self._depth:
+            # a series tool's read-ahead thread reads while the main thread
+            # computes: only the main thread's reads and writes are timed
+            if self._depth or threading.current_thread() is not \
+                    threading.main_thread():
                 return fn(*a, **k)
             self._depth += 1
             torch.cuda.synchronize()
@@ -4606,6 +4639,450 @@ def phase_tools88(tmp: str, dev) -> dict:
     return launches
 
 
+# -- phase 17 -------------------------------------------------------------------
+PIPE_NAMES = ("temp", "density", "progress", "x_velocity", "y_velocity",
+              "z_velocity")
+PIPE_SERIES = 4
+PIPE_CM = ["binComp=temp", "avgComps=density", "nBins=64", "binMin=300",
+           "binMax=1801"]
+PIPE_JPDF = ["vars=temp progress", "nBins=64", "useminmax1=300 1801",
+             "useminmax2=0 1", "output_gnuplot=1", "output_plotfile=0"]
+
+
+def chain_stages(plt: str, out: str, iso_write: bool = True) -> list:
+    """The production chain of the JAX bench's ``sec_cli32``
+    (bench.py:835): grad, curvature, the temp = 1000 K isosurface, and
+    streamlines along the velocity seeded from its nodes."""
+    return [["grad", f"infile={plt}", "gradVar=temp", f"outfile={out}_g"],
+            ["curvature", f"infile={plt}", "progressName=temp",
+             f"outfile={out}_K"],
+            ["isosurface", f"infile={plt}", "isoCompName=temp",
+             f"isoVal={ISO_VAL:g}", f"outfile_base={out}_iso"]
+            + ([] if iso_write else ["write=0"]),
+            ["stream", f"plotfile={plt}", "traceAlongV=1",
+             f"isoFile={out}_iso.mef", *STREAM_KEYS,
+             f"outFile={out}_lines.dat"]]
+
+
+def pipeline_argv(stages) -> list:
+    argv = ["pipeline"]
+    for st in stages:
+        argv += st + ["--"]
+    return argv[:-1]
+
+
+class ChainCounters:
+    """Within the block: the plotfile reads (count and host seconds of
+    ``load_plotfile_fabs``, on whichever thread), the host's wait in each
+    final ``Session.flush_writes()``, and the peak device memory of each
+    pipeline stage (``cli.main`` with a session)."""
+
+    def __init__(self):
+        from peleanalysis_tpu_torch import session
+        self.session = session
+        self.reads, self.read_s, self.flush_s = 0, 0.0, 0.0
+        self.stage_peak, self.stage_s = [], []
+
+    def __enter__(self):
+        s, real_read = self.session, self.session.load_plotfile_fabs
+        real_flush, real_main = s.Session.flush_writes, cli.main
+
+        def read(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real_read(*a, **k)
+            finally:
+                self.reads += 1
+                self.read_s += time.perf_counter() - t0
+
+        def flush(sess, match=None):
+            t0 = time.perf_counter()
+            try:
+                return real_flush(sess, match=match)
+            finally:
+                if match is None:
+                    self.flush_s += time.perf_counter() - t0
+
+        def main(argv=None, session=None):
+            if session is None or argv[0] == "pipeline":
+                return real_main(argv, session=session)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            rc = real_main(argv, session=session)
+            torch.cuda.synchronize()
+            self.stage_peak.append((argv[0],
+                                    torch.cuda.max_memory_allocated()))
+            self.stage_s.append((argv[0], time.perf_counter() - t0))
+            return rc
+
+        self._saved = [(s, "load_plotfile_fabs", real_read),
+                       (s.Session, "flush_writes", real_flush),
+                       (cli, "main", real_main)]
+        s.load_plotfile_fabs, s.Session.flush_writes, cli.main = \
+            read, flush, main
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, real in self._saved:
+            setattr(owner, name, real)
+        return False
+
+    def report(self) -> dict:
+        return {"reads": self.reads, "read_s": self.read_s,
+                "final_flush_wait_s": self.flush_s,
+                "stage_peak_bytes": self.stage_peak,
+                "stage_s": self.stage_s}
+
+
+def start_server(sock: str):
+    """``serve`` on a thread of this process; returns the thread once the
+    socket answers."""
+    from peleanalysis_tpu_torch.server import send_command, serve
+    t = threading.Thread(target=serve, args=({"socket": [sock]},),
+                         daemon=True)
+    t.start()
+    deadline = time.monotonic() + 30.0
+    while True:
+        try:
+            if send_command(sock, cmd="ping", timeout=30.0)["rc"] == 0:
+                return t
+        except OSError:
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.05)
+
+
+def send_ok(sock: str, argv, **kw) -> dict:
+    from peleanalysis_tpu_torch.server import send_command
+    rep = send_command(sock, argv=argv, timeout=600.0, **kw)
+    if rep["rc"] != 0:
+        raise RuntimeError(f"server: {argv[0]} rc {rep['rc']}: "
+                           f"{rep['err'][-2000:]}")
+    return rep
+
+
+def chain_run(way: str, plt: str, out: str, sock: str) -> dict:
+    """One warm run of the chain: (a) ``file``, four cli.main calls; (b)
+    ``pipeline``, one pipeline with write=0 on the isosurface stage; (c)
+    ``server``, the four commands through the server (sync each).  Wall
+    (host clock, ending in a synchronize), reads, the final flushes' wait,
+    peak device memory, each stage's wall (in the pipeline and the server
+    without the writes the stage leaves behind) and peak memory, and for
+    (a) and (c) each command's wall with its writes."""
+    stages = chain_stages(plt, out, iso_write=(way != "pipeline"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ChainCounters() as cc:
+        t0 = time.perf_counter()
+        commands = []
+        if way == "pipeline":
+            if cli.main(pipeline_argv(stages)) != 0:
+                raise RuntimeError("pipeline failed")
+        for st in (stages if way != "pipeline" else ()):
+            t1 = time.perf_counter()
+            if way == "file":
+                if cli.main(st) != 0:
+                    raise RuntimeError(f"{st[0]} failed")
+                torch.cuda.synchronize()
+            else:
+                send_ok(sock, st, sync=True)
+            commands.append((st[0], time.perf_counter() - t1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = max([torch.cuda.max_memory_allocated()]
+               + [b for _, b in cc.stage_peak])
+    return {"wall_s": wall, **cc.report(), "command_s": commands,
+            "max_memory_allocated": peak}
+
+
+def same_files(a: str, b: str) -> None:
+    if os.path.isdir(a):
+        if same_tree(a, b) == 0:
+            raise AssertionError(f"{a}: empty")
+    elif not filecmp.cmp(a, b, shallow=False):
+        raise AssertionError(f"{a} and {b} differ")
+
+
+def subprocess_server(tmp: str, plt: str, dev) -> dict:
+    """``python -m peleanalysis_tpu_torch serve`` as a child process: one
+    ``send`` of grad at the repo case, its files equal to a direct run's,
+    then ``shutdown``: the child exits 0 within its deadline."""
+    from peleanalysis_tpu_torch.server import send_command
+    sock = os.path.join(tmp, "p17_child.sock")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log = os.path.join(tmp, "p17_child.log")
+    # this process's allocator keeps the earlier phases' blocks reserved:
+    # hand them back so the child finds the card's memory free
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with open(log, "wb") as err:
+        child = subprocess.Popen([sys.executable, "-m",
+                                  "peleanalysis_tpu_torch", "serve",
+                                  f"socket={sock}"], cwd=ROOT, env=env,
+                                 stdout=subprocess.DEVNULL, stderr=err)
+    try:
+        deadline = time.monotonic() + 120.0
+        while True:
+            try:
+                send_command(sock, cmd="ping", timeout=30.0)
+                break
+            except OSError:
+                if child.poll() is not None or time.monotonic() > deadline:
+                    with open(log) as fh:
+                        raise RuntimeError("child server did not answer: "
+                                           + fh.read()[-2000:])
+                time.sleep(0.1)
+        up_s = time.perf_counter() - t0
+        out_s, out_d = (os.path.join(tmp, f"p17_child_{k}") for k in "sd")
+        grad = ["grad", f"infile={plt}", "gradVar=temp", f"device={dev}"]
+        t1 = time.perf_counter()
+        send_ok(sock, grad + [f"outfile={out_s}"], sync=True)
+        send_s = time.perf_counter() - t1
+        run_wall(grad[0], grad[1:] + [f"outfile={out_d}"])
+        cells = same_tree(out_s, out_d)
+        if send_command(sock, cmd="shutdown", timeout=60.0)["rc"] != 0:
+            raise RuntimeError("child server: shutdown failed")
+        rc = child.wait(timeout=60)
+        if rc != 0:
+            raise RuntimeError(f"child server exited {rc}")
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    shutil.rmtree(out_s)
+    shutil.rmtree(out_d)
+    return {"start_to_first_reply_s": up_s, "send_grad_s": send_s,
+            "files_equal_direct": cells, "exit_code": rc}
+
+
+def series_walls(plts, tmp: str) -> dict:
+    """conditionalMean and one jpdf pair over the series, prefetch=0 and
+    prefetch=1 in turns (min of 2 each), outputs byte-equal."""
+    files = " ".join(plts)
+    out = {}
+    for tool, keys in (("conditionalMean", PIPE_CM), ("jpdf", PIPE_JPDF)):
+        walls, text = {"0": [], "1": []}, {}
+        for rep in range(2):
+            for pre in ("0", "1"):
+                cm = os.path.join(tmp, f"p17_cm{pre}.dat")
+                args = [f"infile={files}", *keys, f"prefetch={pre}"]
+                if tool == "conditionalMean":
+                    args.append(f"outfile={cm}")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    walls[pre].append(run_wall(tool, args))
+                text[pre] = (open(cm, "rb").read()
+                             if tool == "conditionalMean" else
+                             [open(os.path.join(p, "Pdf_temp_progress.gpd"),
+                                   "rb").read() for p in plts])
+        if text["0"] != text["1"]:
+            raise AssertionError(f"{tool}: prefetch=1 output differs")
+        out[tool] = {"prefetch0_s": min(walls["0"]),
+                     "prefetch1_s": min(walls["1"]),
+                     "walls_s": walls, "outputs_equal": True}
+    return out
+
+
+def deferred_fetches(plt: str, dev) -> dict:
+    """The H100's numbers for the deferred fetches at production size:
+    DeferredSurface.positions() (xyz only) against its full copy
+    (to_mef(), what the eager engine copies), and DeferredLines.finish()
+    (one packed copy) against one copy a level (the eager path), each
+    bitwise equal to the eager engine's result."""
+    from peleanalysis_tpu_torch.stream.trace import _decode_compressed
+    ds = DenseAmrState.from_plotfile(plt, dev, names=[
+        "temp", "x_velocity", "y_velocity", "z_velocity"],
+        dtype=torch.float64)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    eager = extract_isosurface(ds, "temp", ISO_VAL)
+    res = {}
+    for rep in range(2):
+        surf = extract_isosurface(ds, "temp", ISO_VAL, defer=True)
+        xyz, pos_s = timed(surf.positions)
+        mef, full_s = timed(surf.to_mef)
+        if not (np.array_equal(xyz, eager.positions())
+                and np.array_equal(mef.nodes, eager.nodes)
+                and np.array_equal(mef.elements, eager.elements)):
+            raise AssertionError("DeferredSurface differs from the eager MEF")
+        res.setdefault("positions_s", []).append(pos_s)
+        res.setdefault("full_copy_s", []).append(full_s)
+    surface = {"nodes": eager.n_nodes, "elements": eager.n_elts,
+               "positions_bytes": eager.n_nodes * 3 * 8,
+               "full_bytes": eager.nodes.nbytes + eager.elements.nbytes,
+               "positions_s": min(res["positions_s"]),
+               "full_copy_s": min(res["full_copy_s"])}
+    seeds = eager.positions()
+    kw = dict(trace_field=None, sample_names=["temp"])
+    lines = trace_streamlines(ds, seeds, 51, 0.5, **kw)
+    res = {}
+    for rep in range(2):
+        dl = trace_streamlines(ds, seeds, 51, 0.5, defer=True, **kw)
+        (got, _), finish_s = timed(dl.finish)
+        per = trace_streamlines(ds, seeds, 51, 0.5, defer=True, **kw)
+
+        def per_level():
+            out = np.zeros_like(lines)
+            for sel, p in per._pending:
+                if per._compress:
+                    _decode_compressed(p.cpu().numpy(), sel, out,
+                                       per._n_half, per._nf, per._h_phys)
+                else:
+                    out[sel] = p.cpu().numpy()
+            return out
+
+        got2, per_s = timed(per_level)
+        if not (np.array_equal(got, lines) and np.array_equal(got2, lines)):
+            raise AssertionError("DeferredLines differs from the eager lines")
+        res.setdefault("finish_s", []).append(finish_s)
+        res.setdefault("per_level_s", []).append(per_s)
+    lines_out = {"lines": len(seeds), "levels": len(dl._pending),
+                 "bytes": lines.nbytes, "finish_s": min(res["finish_s"]),
+                 "per_level_copies_s": min(res["per_level_s"])}
+    return {"surface": surface, "lines": lines_out}
+
+
+def phase_pipeline(tmp: str, stream: dict, dev) -> dict:
+    """The production chain three ways (file-chained, pipeline, server),
+    its outputs byte-equal, the session's memory back to its level after
+    reset, a child-process server, the series read-ahead and the deferred
+    fetches; launches counted over the timed runs, every kernel then held
+    against its plain version on one pipeline and one series run of each
+    stats tool."""
+    t0 = time.perf_counter()
+    f = default_fields()
+    plt = os.path.join(tmp, "p17_plt")
+    bas = write_synthetic_plotfile(
+        plt, fields={n: f[n] for n in PIPE_NAMES}, **PROD_CASE)[1]
+    plts = [plt]
+    for i in range(1, PIPE_SERIES):
+        plts.append(os.path.join(tmp, f"p17_plt{i}"))
+        shutil.copytree(plt, plts[-1])
+    steps = {"generate_s": time.perf_counter() - t0}
+    from peleanalysis_tpu_torch.server import send_command
+    sock = os.path.join(tmp, "p17.sock")
+    server = start_server(sock)
+    o = lambda tag: os.path.join(tmp, f"p17_{tag}")  # noqa: E731
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        chain_run("file", plt, o("cold"), sock)        # builds, first loads
+    steps["cold_s"] = time.perf_counter() - t1
+    # the timed runs: every count set to 0 just before, read just after
+    reset_counts()
+    runs = {"file": [], "pipeline": [], "server": []}
+    t1 = time.perf_counter()
+    for rep in range(2):
+        for way in runs:
+            with contextlib.redirect_stdout(io.StringIO()):
+                runs[way].append(chain_run(way, plt, o(f"{way}{rep}"), sock))
+            if way == "server":
+                # each timed server run starts from an empty session, and
+                # no other run shares the card with the server's
+                send_command(sock, cmd="reset", timeout=600.0)
+    launches = counts()
+    steps["timed_s"] = time.perf_counter() - t1
+    # a warm server session: the same four commands twice, no reset
+    with contextlib.redirect_stdout(io.StringIO()):
+        chain_run("server", plt, o("server_warm"), sock)
+        warm_session = chain_run("server", plt, o("server_warm"), sock)
+    send_command(sock, cmd="reset", timeout=600.0)
+    ways = {w: {"wall_s": min(r["wall_s"] for r in rs),
+                "walls_s": [r["wall_s"] for r in rs], "runs": rs}
+            for w, rs in runs.items()}
+    ways["server_warm_session"] = warm_session
+    # (b) and (c) against (a), byte for byte (the first timed round)
+    checks = {}
+    for way in ("pipeline", "server"):
+        for rep in range(1):
+            a, b = o(f"file{rep}"), o(f"{way}{rep}")
+            for suffix in ("_g", "_K", "_lines.dat"):
+                same_files(a + suffix, b + suffix)
+            if way == "server":
+                same_files(a + "_iso.mef", b + "_iso.mef")
+            if way == "pipeline" and os.path.exists(b + "_iso.mef"):
+                raise AssertionError("pipeline wrote its write=0 surface")
+        checks[way] = "plotfiles and lines byte-equal to file-chained" + (
+            ", MEF too" if way == "server" else "")
+    send_command(sock, cmd="shutdown", timeout=600.0)
+    server.join(timeout=60)
+    if server.is_alive():
+        raise RuntimeError("in-process server did not stop")
+    # the session's memory: back to its level after reset
+    from peleanalysis_tpu_torch.session import Session
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    sess = Session(async_writes=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(pipeline_argv(chain_stages(plt, o("mem"), False)),
+                    session=sess) != 0:
+            raise RuntimeError("pipeline failed")
+    held_by_session = torch.cuda.memory_allocated() - before
+    sess.reset()
+    del sess
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    memory = {"before_bytes": before, "session_holds_bytes": held_by_session,
+              "after_reset_bytes": after}
+    if after != before:
+        raise AssertionError(f"reset left {after - before} bytes allocated")
+    for tag in ["cold", "mem", "server_warm"] + [
+            f"{w}{r}" for w in runs for r in range(2)]:
+        for suffix in ("_g", "_K", "_iso.mef", "_lines.dat"):
+            p = o(tag) + suffix
+            if os.path.isdir(p):
+                shutil.rmtree(p)
+            elif os.path.exists(p):
+                os.remove(p)
+    steps["chain_total_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    reset_counts()
+    series = series_walls(plts, tmp)
+    for k, v in counts().items():
+        launches[k] += v
+    steps["series_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    deferred = deferred_fetches(plt, dev)
+    steps["deferred_s"] = time.perf_counter() - t1
+    # every kernel of the phase held against its plain version
+    t1 = time.perf_counter()
+    with HeldAgainstPlain() as held, \
+            contextlib.redirect_stdout(io.StringIO()):
+        if cli.main(pipeline_argv(chain_stages(plt, o("held"), False))) != 0:
+            raise RuntimeError("held pipeline failed")
+        files = " ".join(plts)
+        run_wall("conditionalMean", [f"infile={files}", *PIPE_CM,
+                                     f"outfile={o('held_cm.dat')}"])
+        run_wall("jpdf", [f"infile={files}", *PIPE_JPDF])
+    missing = [k for k in counts() if held.seen[k]["calls"] == 0]
+    if missing or any(v == 0 for v in launches.values()):
+        raise AssertionError(f"pipeline phase: no launch or held call of "
+                             f"{missing or launches}")
+    steps["held_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    child = subprocess_server(tmp, stream["plt"], dev)
+    steps["child_server_s"] = time.perf_counter() - t1
+    for p in plts[1:]:
+        shutil.rmtree(p)
+    emit({"phase": "pipeline", "case": PROD_CASE,
+          "cells": sum(b.total_cells() for b in bas),
+          "chain": [st[0] for st in chain_stages(plt, "x")],
+          "ways": ways, "checks": checks, "session_memory": memory,
+          "child_server": child, "series": {"files": PIPE_SERIES, **series},
+          "deferred": deferred, "launches": launches, "steps": steps,
+          "kernels_vs_plain": {"tolerance": "as phases 3, 3b and 3c",
+                               "calls": held.report()},
+          "seconds": time.perf_counter() - t0})
+    return launches, {k: v["max_abs_err"] for k, v in held.report().items()}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = phase_device()
@@ -4636,20 +5113,24 @@ def main() -> int:
         tools84 = phase_tools84(tmp, stream, dev)
         tools86 = phase_tools86(tmp, stream)
         tools88 = phase_tools88(tmp, dev)
+        pipe, pipe_err = phase_pipeline(tmp, stream, dev)
     for k, err in stats_err.items():
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"], err)
     # the kernels held at the sparse paths' shapes (phases 12 and 12b) and
     # at the tools8 phase's (13)
     kern["max_abs_err"] = max(kern["max_abs_err"], sparse_err["grad_mag"],
-                              tools8_err["grad_mag"])
+                              tools8_err["grad_mag"], pipe_err["grad_mag"])
     march["max_abs_err"] = max(march["max_abs_err"],
                                sparse_err["stream_march"],
-                               tools8_err["stream_march"])
+                               tools8_err["stream_march"],
+                               pipe_err["stream_march"])
     march["key"]["max_abs_err"] = max(march["key"]["max_abs_err"],
-                                      tools8_err["stream_march_order_key"])
+                                      tools8_err["stream_march_order_key"],
+                                      pipe_err["stream_march_order_key"])
     for k in ("binned", "joint"):
         stats_k[k]["max_abs_err"] = max(stats_k[k]["max_abs_err"],
-                                        sparse_err[f"stats_{k}"])
+                                        sparse_err[f"stats_{k}"],
+                                        pipe_err[f"stats_{k}"])
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": [{
@@ -4661,6 +5142,7 @@ def main() -> int:
         "launches_tools84": tools84["grad_mag"],
         "launches_tools86": tools86["grad_mag"],
         "launches_tools88": tools88["grad_mag"],
+        "launches_pipeline": pipe["grad_mag"],
         **{k: kern[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")}}, {
@@ -4673,6 +5155,7 @@ def main() -> int:
         "launches_tools84": tools84["stream_march"],
         "launches_tools86": tools86["stream_march"],
         "launches_tools88": tools88["stream_march"],
+        "launches_pipeline": pipe["stream_march"],
         **{k: march[k] for k in ("max_abs_err", "ms", "batch_ms", "plain_ms",
                                  "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -4686,6 +5169,7 @@ def main() -> int:
         "launches_tools84": tools84["stream_march_order_key"],
         "launches_tools86": tools86["stream_march_order_key"],
         "launches_tools88": tools88["stream_march_order_key"],
+        "launches_pipeline": pipe["stream_march_order_key"],
         **{k: march["key"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by")},
         "library_ms": None}, {
@@ -4697,7 +5181,8 @@ def main() -> int:
         "launches_sparse": sparse["stats_binned"],
         "launches_tools84": tools84["stats_binned"],
         "launches_tools86": tools86["stats_binned"],
-        "launches_tools88": tools88["stats_binned"], **stats_k["binned"]}, {
+        "launches_tools88": tools88["stats_binned"],
+        "launches_pipeline": pipe["stats_binned"], **stats_k["binned"]}, {
         # no Pallas kernel: the one-hot contractions of joint_pdf(_multi)
         "name": "stats_joint", "route": "cuda",
         "source": "peleanalysis_tpu_torch/csrc/stats_hist.cu",
@@ -4706,7 +5191,8 @@ def main() -> int:
         "launches_sparse": sparse["stats_joint"],
         "launches_tools84": tools84["stats_joint"],
         "launches_tools86": tools86["stats_joint"],
-        "launches_tools88": tools88["stats_joint"], **stats_k["joint"]}]})
+        "launches_tools88": tools88["stats_joint"],
+        "launches_pipeline": pipe["stats_joint"], **stats_k["joint"]}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -264,6 +264,26 @@ class DenseAmrState:
                     range(len(self.meta.bas[lev])))
         out.write(path)
 
+    def to_plotfile_async(self, path: str, submit, names=None,
+                          dtype=np.float64) -> None:
+        """``to_plotfile`` with the host half on another thread: each
+        level is packed on the state's device and its copy into a fresh
+        pinned buffer started here; ``submit`` gets a thunk that waits on
+        each copy's CUDA event, then files the records and writes the
+        plotfile (host work only: no launch, no allocation on the card).
+        The files equal ``to_plotfile``'s byte for byte."""
+        out = PlotfileRecords(self.meta, names or self.names, dtype)
+        pending = [out.start(lev, self.data[lev], self.lmeta[lev].bbox,
+                             range(len(self.meta.bas[lev])))
+                   for lev in range(self.meta.n_levels)]
+
+        def write():
+            for finish in pending:
+                finish()
+            out.write(path)
+
+        submit(write)
+
 
 class PlotfileRecords:
     """A plotfile of ``meta``'s boxes gathered part by part: each ``add``
@@ -286,14 +306,26 @@ class PlotfileRecords:
     def add(self, lev: int, data: torch.Tensor, bbox: Box, idx) -> None:
         """Boxes ``idx`` of level ``lev`` from ``data [ncomp, *bbox.shape]``
         (index space of ``bbox``)."""
+        self.start(lev, data, bbox, idx)()
+
+    def start(self, lev: int, data: torch.Tensor, bbox: Box, idx):
+        """``add``, split at the copy: packs the boxes and starts their
+        copy to the host, and returns the thunk that waits for it and files
+        the records (``fab_pack.fetch_level``)."""
         idx = list(idx)
         boxes = self.meta.bas[lev]
         packed = pack_level(data, [_box_slices(boxes[i], bbox) for i in idx],
                             self.dtype)
-        payloads, mins, maxs = level_records(
-            packed, fetch_level(packed), [self._shapes[lev][i] for i in idx])
-        for k, i in enumerate(idx):
-            self._records[lev][i] = (payloads[k], mins[k], maxs[k])
+        host, wait = fetch_level(packed)
+
+        def finish():
+            wait()
+            payloads, mins, maxs = level_records(
+                packed, host, [self._shapes[lev][i] for i in idx])
+            for k, i in enumerate(idx):
+                self._records[lev][i] = (payloads[k], mins[k], maxs[k])
+
+        return finish
 
     def write(self, path: str) -> None:
         missing = [(lev, i) for lev, recs in enumerate(self._records)

@@ -31,9 +31,12 @@ Sparse refinement (``extract_isosurface_sparse``) runs the engine once on
 the coarse levels and once a finest-level cluster with ``emit_levels`` and
 ``want_eids``, and merges the runs by global node keys.
 
-Not ported: the ``device``, ``fused`` and ``numpy`` engines, the canonical
-frames and batched clusters of the JAX sparse path, and ``defer=``
-(``DeferredSurface``).
+``defer=True`` (a pipeline stage with write=0) keeps the nodes and elements
+on the device and returns a :class:`DeferredSurface`: a downstream stream
+stage copies only the seed xyz columns.
+
+Not ported: the ``device``, ``fused`` and ``numpy`` engines, and the
+canonical frames and batched clusters of the JAX sparse path.
 """
 from __future__ import annotations
 
@@ -352,7 +355,7 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                             iso_val: float, extra_names: Sequence[str] = (),
                             bc=None, label: Optional[str] = None,
                             emit_levels: Optional[Sequence[int]] = None,
-                            want_eids: bool = False):
+                            want_eids: bool = False, defer: bool = False):
     """Isosurface of ``iso_name`` at ``iso_val`` over all levels: a MEF with
     names ``X Y Z iso_name extra...`` (nodes in float64, computed in the
     state's dtype) whose node ids and elements are the JAX enum engine's.
@@ -363,7 +366,12 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     cluster runs emit the finest); a level not emitted enumerates only the
     class-B seam parents that finer levels inject.  want_eids also returns
     each node's global key (``_node_keys``, int64 numpy) for the sparse
-    path's merge of runs."""
+    path's merge of runs.  defer=True keeps the result on the device and
+    returns a :class:`DeferredSurface` (not with want_eids: the sparse
+    merge needs the keys on the host)."""
+    if defer and want_eids:
+        raise ValueError("defer is not supported with want_eids (the "
+                         "sparse merge needs the decoded edge ids)")
     meta = dstate.meta
     L = meta.n_levels
     emit = tuple(range(L)) if emit_levels is None else tuple(emit_levels)
@@ -534,6 +542,12 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
         mef = MEF(label or "0", out_names, np.zeros((0, nf)),
                   np.zeros((0, 3), np.int32))
         return (mef, np.zeros(0, np.int64)) if want_eids else mef
+    if defer:
+        return DeferredSurface(label or "0", out_names, torch.cat(node_rows),
+                               elements, counts=(
+                                   sum(counts[3 * lev + 2]
+                                       for lev in range(L)),
+                                   int(elements.shape[0])))
     with _stage("copy"):
         nodes = torch.cat(node_rows).cpu().numpy()
         elements = elements.cpu().numpy()
@@ -541,6 +555,53 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     mef = MEF(label or "0", out_names, nodes.astype(np.float64),
               elements.astype(np.int32))
     return (mef, keys) if want_eids else mef
+
+
+class DeferredSurface:
+    """An enum-engine surface left on the device (counterpart of the JAX
+    ``DeferredSurface``, ``geom/marching_cubes.py:930-972``).  ``n_nodes``
+    and ``n_elts`` come from the engine's count read; ``positions()``
+    copies the node xyz columns alone; ``to_mef()`` copies the rest once,
+    keeps the MEF and drops the device tensors.  Duck-types ``MEF`` for
+    downstream stages (positions, nodes, elements, names, n_nodes,
+    n_elts); the copies equal the eager engine's MEF bitwise."""
+
+    def __init__(self, label: str, names, nodes: torch.Tensor,
+                 elements: torch.Tensor, counts):
+        self.label = label
+        self.names = list(names)
+        self._nodes = nodes            # [n_nodes, nf] on the device
+        self._elements = elements      # [n_elts, 3] int32 on the device
+        self.n_nodes, self.n_elts = (int(c) for c in counts)
+        self._xyz = None
+        self._mef = None
+
+    def positions(self) -> np.ndarray:
+        if self._mef is not None:
+            return self._mef.positions()
+        if self._xyz is None:
+            with _stage("copy"):
+                self._xyz = self._nodes[:, :3].cpu().numpy().astype(
+                    np.float64)
+        return self._xyz
+
+    def to_mef(self) -> MEF:
+        if self._mef is None:
+            with _stage("copy"):
+                nodes = self._nodes.cpu().numpy()
+                elements = self._elements.cpu().numpy()
+            self._mef = MEF(self.label, self.names, nodes.astype(np.float64),
+                            elements.astype(np.int32))
+            self._nodes = self._elements = self._xyz = None
+        return self._mef
+
+    @property
+    def nodes(self) -> np.ndarray:
+        return self.to_mef().nodes
+
+    @property
+    def elements(self) -> np.ndarray:
+        return self.to_mef().elements
 
 
 def _share_coarse_inputs(dst: DenseAmrState, base: DenseAmrState, comps,
@@ -617,18 +678,15 @@ def extract_isosurface(dstate: DenseAmrState, iso_name: str, iso_val: float,
                        label: Optional[str] = None, classify: str = "enum",
                        defer: bool = False) -> MEF:
     """Marching-cubes isosurface over all levels -> MEF, through the enum
-    engine (the only engine ported)."""
-    if defer:
-        raise NotImplementedError(
-            "defer=True (DeferredSurface, pipeline mode) is not ported yet "
-            "(ROADMAP.md Queue 1 item 5: session, pipeline and server)")
+    engine (the only engine ported); defer=True returns a
+    :class:`DeferredSurface`."""
     if classify != "enum":
         raise NotImplementedError(
             f"engine={classify}: only the enum engine is ported; the device, "
             "fused and numpy engines are not to be ported (ROADMAP.md Queue 1 "
             "item 2)")
     return extract_isosurface_enum(dstate, iso_name, iso_val, extra_names,
-                                   bc, label)
+                                   bc, label, defer=defer)
 
 
 def surface_area(mef: MEF) -> float:

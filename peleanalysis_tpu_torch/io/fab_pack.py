@@ -4,8 +4,8 @@ The device half of ``DenseAmrState.to_plotfile``.  For one level,
 ``pack_level`` slices every box window, permutes it to the file's
 ``[comp, k, j, i]`` order, casts it to the output dtype and packs the boxes
 in file order into one flat buffer; the buffer's tail holds each box's
-per-component min and max of the cast values.  ``fetch_level`` copies the
-buffer to (pinned) host memory in one copy, and ``level_records`` turns it
+per-component min and max of the cast values.  ``fetch_level`` starts the
+buffer's one copy to (pinned) host memory, and ``level_records`` turns it
 into the FAB payloads, as views, and the ``_H`` min/max tables for
 ``io/plotfile.py`` ``write_plotfile_records``.  The JAX package's packed
 dense writer (``peleanalysis_tpu/amr/dense.py`` ``_packed_dev``) also
@@ -86,15 +86,23 @@ def pack_level(data: torch.Tensor, windows: Sequence[Tuple[slice, ...]],
     return PackedLevel(flat, ncomp, offsets, payload)
 
 
-def fetch_level(packed: PackedLevel) -> np.ndarray:
-    """The packed buffer on the host: one copy into pinned memory from a
-    card, the buffer itself on the CPU."""
+def fetch_level(packed: PackedLevel):
+    """Start the packed buffer's copy to the host: ``(host, wait)``, where
+    ``host`` holds the buffer once ``wait()`` has returned.  From a card
+    the copy goes into a fresh pinned buffer (never reused across calls)
+    and ``wait`` blocks on a CUDA event recorded after it, so another host
+    thread may call it (the session's write-back does): it launches
+    nothing and allocates nothing on the card.  The caller keeps
+    ``packed`` referenced until ``wait()`` has returned.  On the CPU the
+    buffer is the host array and ``wait`` returns at once."""
     if packed.flat.device.type == "cpu":
-        return packed.flat.numpy()
+        return packed.flat.numpy(), lambda: None
     host = torch.empty(packed.flat.shape, dtype=packed.flat.dtype,
                        pin_memory=True)
-    host.copy_(packed.flat)
-    return host.numpy()
+    host.copy_(packed.flat, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host.numpy(), done.synchronize
 
 
 def level_records(packed: PackedLevel, host: np.ndarray,

@@ -21,6 +21,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from .vec3 import sqrt
+
 
 def _const(x: float, like: torch.Tensor) -> torch.Tensor:
     """``x`` rounded to ``like``'s dtype, as a 0-dim tensor on its device."""
@@ -53,10 +55,14 @@ def centered_gradient(grown: torch.Tensor, dx: Sequence[float],
 
 
 def magnitude(*comps: torch.Tensor) -> torch.Tensor:
+    """sqrt of the sum of squares, correctly rounded on every device: on
+    the CPU the root goes through numpy (``vec3.sqrt``), since PyTorch's
+    vectorised float32 CPU sqrt now and then returns a whole block of
+    values ~2e-4 off (ROADMAP Queue 3 item 3)."""
     s = comps[0] * comps[0]
     for c in comps[1:]:
         s = s + c * c
-    return torch.sqrt(s)
+    return sqrt(s)
 
 
 def divergence(vec: Sequence[torch.Tensor], dx: Sequence[float],

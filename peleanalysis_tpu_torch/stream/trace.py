@@ -15,13 +15,16 @@ reference's per-box Fortran stack (Src/stream.cpp:888-934 + stream_nd.f90):
     over the doubled seeds: the CUDA kernel on the card;
   * each level's lines (and sampled fields) come back to the host in one
     copy, exact or, with ``fetch_compress``, as the JAX package's lossy
-    packing (int16 station deltas, uint16 per-line field ranges).
+    packing (int16 station deltas, uint16 per-line field ranges); with
+    ``defer=True`` every level's payload stays on the device until
+    ``DeferredLines.finish`` copies them all, and any extra device
+    tensors, in one copy.
 
 Paths are ``[nseed, 2*nRKh+1, 3+nfields]`` with the seed at station nRKh.
 Sparse refinement: ``trace_streamlines_sparse`` marches each finest-level
 cluster's seeds on its own substate (amr/cluster.py) and the other seeds on
-the coarse levels.  Not ported: ``defer=`` (pipeline mode), march chunking,
-and the JAX sparse path's canonical frames and seed padding.
+the coarse levels.  Not ported: march chunking, and the JAX sparse path's
+canonical frames and seed padding.
 """
 from __future__ import annotations
 
@@ -194,11 +197,9 @@ def trace_streamlines(
     "torch" (the plain version: a CPU state only).
     fetch_compress: None = the JAX default (lossy packing exactly when the
     field is bfloat16 and nRKh <= 320), True / False force it.
+    defer: leave every level's payload on the device and return a
+    :class:`DeferredLines` instead; ``finish()`` copies them in one copy.
     """
-    if defer:
-        raise NotImplementedError(
-            "defer=True (pipeline mode) is not ported yet (ROADMAP.md "
-            "Queue 1 item 5: session, pipeline and server)")
     if march_engine not in ENGINES:
         raise ValueError(f"march_engine={march_engine!r}: expected one of "
                          f"{', '.join(ENGINES)}")
@@ -246,6 +247,7 @@ def trace_streamlines(
     field_dt = torch.bfloat16 if march_dtype == "bfloat16" else dstate.dtype
 
     out = np.zeros((len(seeds), 2 * n_half + 1, 3 + nf))
+    pending = []
     for lev in range(meta.n_levels):
         sel = np.nonzero(owner == lev)[0]
         if len(sel) == 0:
@@ -284,13 +286,96 @@ def trace_streamlines(
         vals = (_sample_fields(fields, plo, dx, path.contiguous()) if nf
                 else None)
         if compress:
-            packed = _pack_compressed(path, vals, h_phys, n_half)
-            _decode_compressed(packed.cpu().numpy(), sel, out, n_half, nf,
-                               h_phys)
+            payload = _pack_compressed(path, vals, h_phys, n_half)
         else:
             payload = path if vals is None else torch.cat([path, vals], -1)
+        if defer:
+            pending.append((sel, payload))
+        elif compress:
+            _decode_compressed(payload.cpu().numpy(), sel, out, n_half, nf,
+                               h_phys)
+        else:
             out[sel] = payload.cpu().numpy()     # one copy per level
+    if defer:
+        return DeferredLines(pending, out, compress, n_half, nf, h_phys)
     return out
+
+
+_NP = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+def _extra_dtype(t: torch.Tensor):
+    """The host dtype of an extra of ``DeferredLines.finish``: the JAX
+    ``_as_words`` rules (int32 and float64 kept, anything else float32)."""
+    return {torch.int32: np.int32, torch.float64: np.float64}.get(
+        t.dtype, np.float32)
+
+
+class DeferredLines:
+    """Streamline payloads left on the device (counterpart of the JAX
+    ``DeferredLines``, ``stream/trace.py:551-605``):
+    ``trace_streamlines(..., defer=True)`` queues every level's march and
+    returns one of these.  ``finish(extra=())`` packs every level's payload
+    and the caller's device tensors into one flat byte buffer on the
+    device, copies it to (pinned) host memory in ONE copy and decodes it
+    with the eager path's arithmetic, so the lines equal the eager ones
+    bitwise.  A second ``finish`` raises."""
+
+    def __init__(self, pending, out, compress, n_half, nf, h_phys):
+        self._pending = pending        # [(sel, device payload), ...]
+        self._out = out
+        self._compress = compress
+        self._n_half = n_half
+        self._nf = nf
+        self._h_phys = h_phys
+        self._done = False
+
+    def finish(self, extra=()):
+        """``(lines, extras)``: the float64 lines and each extra as a numpy
+        array of its shape: int32 and float64 kept, other dtypes as
+        float32 (the JAX rules)."""
+        if self._done:
+            raise RuntimeError("DeferredLines.finish() already consumed")
+        self._done = True
+        extra = list(extra)
+        hdt = [_extra_dtype(e) for e in extra]
+        tdt = {np.int32: torch.int32, np.float64: torch.float64,
+               np.float32: torch.float32}
+        parts = [p for _, p in self._pending] + [
+            e.to(tdt[d]) for e, d in zip(extra, hdt)]
+        if not parts:                          # no seeds, no extras
+            return self._out, []
+        words, sizes = [], []
+        for p in parts:
+            b = p.contiguous().reshape(-1).view(torch.uint8)
+            sizes.append(b.numel())
+            words.append(b)
+            if b.numel() % 8:                  # keep each part 8-aligned
+                words.append(b.new_zeros(8 - b.numel() % 8))
+        flat = torch.cat(words)
+        if flat.device.type == "cpu":
+            host = flat.numpy()
+        else:
+            pinned = torch.empty(flat.shape, dtype=torch.uint8,
+                                 pin_memory=True)
+            pinned.copy_(flat)                 # the one copy
+            host = pinned.numpy()
+        off, segs = 0, []
+        for n in sizes:
+            segs.append(host[off: off + n])
+            off += -(-n // 8) * 8
+        st = 2 * self._n_half + 1
+        for (sel, payload), seg in zip(self._pending, segs):
+            if self._compress:
+                _decode_compressed(seg.view(np.int16), sel, self._out,
+                                   self._n_half, self._nf, self._h_phys)
+            else:
+                self._out[sel] = seg.view(_NP[payload.dtype]).reshape(
+                    len(sel), st, 3 + self._nf)
+        extras = [seg.view(d).reshape(tuple(e.shape))
+                  for seg, e, d in zip(segs[len(self._pending):], extra,
+                                       hdt)]
+        return self._out, extras
 
 
 def promote_seeds(seeds: np.ndarray, meta) -> np.ndarray:

@@ -28,9 +28,9 @@ import torch
 from .. import config
 from ..amr.box import Box
 from ..amr.dense import DenseAmrState
-from ..io.plotfile import PlotfileReader
 from ..native import savetxt_fast
 from ..parmparse import ParmParse
+from ..session import load_dense, var_names
 from .grad import refuse_unported
 
 BRICK = ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),     # Tecplot FEBRICK
@@ -196,7 +196,7 @@ def main(args: dict) -> None:
     infile = pp.get_str("infile")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    avail = PlotfileReader(infile).var_names
+    avail = var_names(args, infile)
     names = pp.query_str_list(
         "comps", None) or pp.query_str_list("vars", avail)
     if pp.contains("sComp") or pp.contains("nComp"):
@@ -205,10 +205,9 @@ def main(args: dict) -> None:
     if pp.query_bool("doBin", False):
         print("amrToFE: doBin=1 (binary Tecplot, USE_TEC_BIN_IO build "
               "option) is not supported — writing ASCII")
-    ds = DenseAmrState.from_plotfile(
-        infile, device, names=list(dict.fromkeys(names)),
-        max_level=pp.query_int("finestLevel", None),
-        dtype=config.compute_dtype)
+    ds = load_dense(args, infile, device, config.compute_dtype,
+                    names=list(dict.fromkeys(names)),
+                    max_level=pp.query_int("finestLevel", None))
     sub = None
     if pp.contains("box"):
         b = pp.get_int_list("box")

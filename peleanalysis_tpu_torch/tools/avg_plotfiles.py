@@ -6,8 +6,10 @@ replacement for the reference's Src/avgPlotfiles.cpp (docs:
 averagePlotfile.rst "averagePlotfileFlexible").  The output is refined
 wherever any input is: as many levels as the deepest file, each level's
 footprint the union of the inputs' boxes, found from the headers alone.
-The files are then read one after another (``prefetch=`` is accepted and
-changes nothing) and each is filled onto every output level with the dense
+The files are then read, the next ``prefetch=N`` (default 1) on a
+background thread while the current one is accumulated
+(``io/prefetch.iter_states``; ``prefetch=0`` reads them one after
+another), and each is filled onto every output level with the dense
 fill (``interp_type=1`` PCInterp, the default, or ``2`` linear,
 avgPlotfiles.cpp:68-70) and added into that level's accumulator.  A file
 shallower than the output fills from its finest level and is upsampled
@@ -29,10 +31,12 @@ import torch
 from .. import config
 from ..amr.box import Box, BoxArray
 from ..amr.dense import DenseAmrState, PlotfileRecords, _union_mask_np
-from ..amr.hierarchy import AmrMeta, load_plotfile_fabs
+from ..amr.hierarchy import AmrMeta
 from ..io.plotfile import PlotfileReader
+from ..io.prefetch import iter_states, query_prefetch
 from ..ops.dense_fill import _upsample_axis, fill_dense_arrays
 from ..parmparse import ParmParse
+from ..session import dense_state, select
 from .grad import refuse_unported
 from .regrid_plt import covered_chunks
 
@@ -92,10 +96,13 @@ def _box_array_3d(r: PlotfileReader, lev: int) -> BoxArray:
 
 
 def average_paths(paths: Sequence[str], names: Optional[List[str]],
-                  interp: str, output_max_level: Optional[int], device):
-    """Stream the files through the accumulators.  Returns (accs, uboxes,
-    unions, meta0, names, rvecs): the per-level averages on ``device``,
-    their union bboxes and footprints, and the first file's metadata."""
+                  interp: str, output_max_level: Optional[int], device,
+                  args: Optional[dict] = None, depth: int = 0):
+    """Stream the files through the accumulators, ``depth`` files read
+    ahead (``io/prefetch.iter_states``; ``args`` the tool's, for its
+    session).  Returns (accs, uboxes, unions, meta0, names, rvecs): the
+    per-level averages on ``device``, their union bboxes and footprints,
+    and the first file's metadata."""
     readers = [PlotfileReader(p) for p in paths]
     # MAX levels across the ensemble (avgPlotfiles.cpp:83), shallower files
     # interpolated onto the missing levels
@@ -140,11 +147,13 @@ def average_paths(paths: Sequence[str], names: Optional[List[str]],
     accs = [torch.zeros((len(names),) + ub.shape, dtype=torch.float64,
                         device=device) for ub in uboxes]
     meta0 = None
-    for p in paths:
-        meta, _, fabs = load_plotfile_fabs(p, names=list(names))
-        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           torch.float64)
-        del fabs
+    args = {} if args is None else args
+    for _, src in iter_states(args, paths, names=list(names),
+                              dtype=torch.float64, device=device,
+                              depth=depth):
+        meta = src.meta
+        ds = select(dense_state(args, src, device, torch.float64), names)
+        del src
         if meta0 is None:
             meta0 = meta
         for lev in range(n_lev):
@@ -175,8 +184,9 @@ def averaged_records(accs, uboxes, unions, meta0: AmrMeta, names,
 def main(args: dict) -> None:
     """CLI: avgPlotfiles infile=<plt>... (or infiles=) [vars=all |
     variables=] [interp_type=1|2] [output_max_level=]
-    [output_max_grid_size=32] [outfile=<first>_avg] [prefetch=1 (accepted;
-    files are read one after another)] [device=cuda|cpu].  Loads and
+    [output_max_grid_size=32] [outfile=<first>_avg] [prefetch=1 (files
+    read ahead on a background thread; 0: one after another)]
+    [device=cuda|cpu].  Loads and
     averages float64."""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles")
@@ -188,10 +198,9 @@ def main(args: dict) -> None:
              or pp.query_str_list("vars", None))
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    pp.query_int("prefetch", 1)
     accs, uboxes, unions, meta0, names, rvecs = average_paths(
         infiles, names, interp, pp.query_int("output_max_level", None),
-        device)
+        device, args, query_prefetch(pp))
     outfile = pp.query_str("outfile", infiles[0] + "_avg")
     averaged_records(accs, uboxes, unions, meta0, names, rvecs,
                      pp.query_int("output_max_grid_size", 32)).write(outfile)

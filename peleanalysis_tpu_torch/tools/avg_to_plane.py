@@ -11,9 +11,9 @@ from __future__ import annotations
 
 from .. import config
 from ..amr.box import Box
-from ..amr.dense import DenseAmrState
 from ..io.fab import write_fab
 from ..parmparse import ParmParse
+from ..session import load_dense
 from .grad import refuse_unported
 from .integral import integrate_along, write_dat_2d, write_ppm
 
@@ -30,8 +30,8 @@ def main(args: dict) -> None:
     base = pp.query_str("outfile_base", infile + "_avgplane")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    ds = DenseAmrState.from_plotfile(infile, device, names=var_names,
-                                     dtype=config.compute_dtype)
+    ds = load_dense(args, infile, device, config.compute_dtype,
+                    names=var_names)
     _, _, fields = integrate_along(ds, var_names, [direction], avg=True)
     for n, v in zip(var_names, fields):
         if fmt == "ppm":

@@ -8,7 +8,9 @@ replacement for the reference's Src/combinePlts.cpp.  Two key surfaces:
 first listed file that has it.  Each file loads only its selected
 components, in float64, on the device; the levels are joined there
 (``torch.cat``) and written through ``DenseAmrState.to_plotfile`` with the
-first file's metadata.
+first file's metadata.  In a session the inputs may be earlier stages'
+outputs (a narrower dtype is widened: the copy is value-identical) and the
+output is registered.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import torch
 
 from .. import config
 from ..amr.dense import DenseAmrState
-from ..io.plotfile import PlotfileReader
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state,
+                       select, stage_write_plotfile, var_names)
 from .grad import refuse_unported
 
 
@@ -48,9 +51,9 @@ def main(args: dict) -> None:
     refuse_unported(pp)
 
     def load(path, names, max_level=None):
-        return DenseAmrState.from_plotfile(path, device, names=names,
-                                           max_level=max_level,
-                                           dtype=torch.float64)
+        src = load_state(args, path, names=names, max_level=max_level,
+                         dtype=torch.float64, device=device, widen_ok=True)
+        return select(dense_state(args, src, device, torch.float64), names)
 
     if pp.contains("infiles"):
         files = pp.get_str_list("infiles")
@@ -59,7 +62,7 @@ def main(args: dict) -> None:
         pp.query_int_list("is_per", [1, 1, 1])   # accepted; metadata-only
         states = []
         for f in files:
-            avail = PlotfileReader(f).var_names
+            avail = var_names(args, f)
             have = [v for v in remaining if v in avail]
             if have:
                 states.append(load(f, have, finest))
@@ -71,10 +74,14 @@ def main(args: dict) -> None:
     else:
         f1 = pp.get_str("infile1")
         f2 = pp.get_str("infile2")
-        comps1 = pp.query_str_list("comps1", PlotfileReader(f1).var_names)
+        comps1 = pp.query_str_list("comps1", var_names(args, f1))
         comps2 = pp.query_str_list("comps2", [
-            n for n in PlotfileReader(f2).var_names if n not in comps1])
+            n for n in var_names(args, f2) if n not in comps1])
         states = [load(f1, comps1), load(f2, comps2)]
         outfile = pp.query_str("outfile", f1 + "_comb")
-    combine(states).to_plotfile(outfile)
-    print(f"wrote {outfile}")
+    out = combine(states)
+    sess = get_session(args)
+    if sess is not None:
+        sess.put_plotfile(outfile, out)
+    if stage_write_plotfile(args, out, outfile):
+        print(f"wrote {outfile}")

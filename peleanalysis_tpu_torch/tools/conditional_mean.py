@@ -10,16 +10,17 @@ Tecplot/gnuplot ASCII with sum/sumSq/avg/std[/min/max]/N/p columns
 (conditionalMean.cpp:310-399).
 
 Every level's histogram is one launch of the stats kernel on the card
-(``ops/stats_kernels.binned_moments``).  The files of a series are read one
-after another: ``prefetch=`` is accepted, and the outputs do not depend on
-it, but the read-ahead thread of the JAX package is not ported.  Sparse
+(``ops/stats_kernels.binned_moments``).  ``prefetch=N`` (default 1) reads
+the next N files of a series on a background thread while the current one
+is binned (``io/prefetch.iter_states``); ``prefetch=0`` reads them one
+after another, and the outputs do not depend on it.  Sparse
 refinement (the finest union bbox wasting >4x its cells) accumulates the
 coarse levels once and the finest level cluster by cluster
 (``sparse_stats_parts``; JAX :293-315).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -27,10 +28,12 @@ import torch
 from .. import config
 from ..amr.cluster import clustered, sparse_stats_parts
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import PlotfileReader
 from ..ops.stats import binned_stats, reconstruct_moments
+from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
+from ..session import LoadedPlotfile, dense_state
+from ..session import var_names as plotfile_vars
 from .grad import refuse_unported
 
 
@@ -221,27 +224,26 @@ def _resolve(name_or_idx: str, var_names: Sequence[str]) -> str:
         return name_or_idx
 
 
-def load_parts(path: str, names: Sequence[str], finest: Optional[int],
-               device, pp: ParmParse, tool: str):
-    """A plotfile's named components as dense parts on ``device`` in the
-    compute dtype: ``(meta, parts)``, parts a re-iterable of ``(state,
-    scale)``.  Dense path: one part, the whole hierarchy, scale 1.  Sparse
-    refinement (unless force_dense=1): the coarse levels with the global
-    covered mask, scaled by r**ndim (r the ratio below the finest level: its
-    weights count cells of level fin-1, conditionalMean's count the finest
+def stats_parts(args: dict, src: LoadedPlotfile, device, pp: ParmParse,
+                tool: str):
+    """A loaded plotfile as dense parts on ``device`` in the compute dtype,
+    a re-iterable of ``(state, scale)``.  Dense path: one part, the whole
+    hierarchy (``session.dense_state``), scale 1.  Sparse refinement
+    (unless force_dense=1): the coarse levels with the global covered mask,
+    scaled by r**ndim (r the ratio below the finest level: its weights
+    count cells of level fin-1, conditionalMean's count the finest
     level's), then one single-level part a finest-level cluster, scale 1,
     each built when visited (``sparse_stats_parts``)."""
-    meta, names, fabs = load_plotfile_fabs(path, names=list(dict.fromkeys(
-        names)), max_level=finest)
+    meta = src.meta
     dt = config.compute_dtype
     if clustered(meta, pp, [meta.n_levels - 1]):
         print(f"{tool}: sparse refinement -> clustered path")
-        base = DenseAmrState.coarse_only(meta, names, fabs, device, dt)
-        coarse, clusters, r = sparse_stats_parts(base, fabs[-1])
-        return meta, _Parts(coarse, float(r ** (2 if meta.ndim2 else 3)),
-                            clusters)
-    return meta, [(DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                                 dt), 1.0)]
+        base = DenseAmrState.coarse_only(meta, src.names, src.fabs, device,
+                                         dt)
+        coarse, clusters, r = sparse_stats_parts(base, src.fabs[-1])
+        return _Parts(coarse, float(r ** (2 if meta.ndim2 else 3)),
+                      clusters)
+    return [(dense_state(args, src, device, dt), 1.0)]
 
 
 class _Parts:
@@ -261,8 +263,8 @@ def main(args: dict) -> None:
     """CLI: conditionalMean infile=<plt>... binComp=<i|name> avgComps=<i|name>...
     nBins= binMin= binMax= [writeBinMinMax=0] [finestLevel=] [aja=0]
     [outSuffix=] [outfile=] [bounds=lo.. hi.. (2*DIM reals)]
-    [prefetch=1 (accepted; files are read one after another)]
-    [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
+    [prefetch=1 (files read ahead on a background thread; 0: one after
+    another)] [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
     nbins = pp.query_int("nBins", 64)
@@ -274,7 +276,7 @@ def main(args: dict) -> None:
     out_suffix = pp.query_str("outSuffix", "")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    pp.query_int("prefetch", 1)
+    depth = query_prefetch(pp)
     bounds = None
     if pp.contains("bounds"):
         barr = pp.get_float_list("bounds")
@@ -298,9 +300,9 @@ def main(args: dict) -> None:
                   tuple(g.prob_lo[d] + (hi0[d] + 1) * g.dx[d]
                         for d in range(nd)) + bounds[1][nd:])
 
-    var_names = PlotfileReader(infiles[0]).var_names
-    bin_name = _resolve(pp.get_str("binComp"), var_names)
-    avg_names = [_resolve(s, var_names) for s in pp.get_str_list("avgComps")]
+    avail = plotfile_vars(args, infiles[0])
+    bin_name = _resolve(pp.get_str("binComp"), avail)
+    avg_names = [_resolve(s, avail) for s in pp.get_str_list("avgComps")]
 
     nb = len(avg_names)
     hits = np.zeros(nbins)
@@ -308,9 +310,11 @@ def main(args: dict) -> None:
     sumsq = np.zeros((nbins, nb))
     mins = np.full((nbins, nb), np.inf)
     maxs = np.full((nbins, nb), -np.inf)
-    for plt in infiles:
-        _, parts = load_parts(plt, [bin_name] + avg_names, finest, device,
-                              pp, "conditionalMean")
+    series = iter_states(args, infiles, names=list(dict.fromkeys(
+        [bin_name] + avg_names)), max_level=finest,
+        dtype=config.compute_dtype, device=device, depth=depth)
+    for _, src in series:
+        parts = stats_parts(args, src, device, pp, "conditionalMean")
         for ds, scale in parts:
             h, s, s2, mn, mx = accumulate_conditional_mean(
                 ds, bin_name, avg_names, nbins, bin_min, bin_max,

@@ -47,14 +47,14 @@ import torch
 from .. import config
 from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState, _np_dtype
-from ..amr.hierarchy import load_plotfile_fabs
-from ..io.plotfile import PlotfileReader
 from ..ops.dense_fill import fill_dense_arrays, fill_dense_multilevel
 from ..ops.grad_kernels import grad_mag
 from ..ops.restrict import average_down_all
 from ..ops.solve import cg_solve, cg_solve_composite
 from ..ops.stencil import laplacian
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state,
+                       stage_write_plotfile, var_names)
 from .grad import grad_bc, refuse_unported, write_clustered
 
 D = 3
@@ -344,7 +344,7 @@ def main(args: dict) -> None:
     names = [progress_name]
     if do_strain or do_velnormal:
         names += [n for n in ("x_velocity", "y_velocity", "z_velocity")
-                  if n in PlotfileReader(infile).var_names]
+                  if n in var_names(args, infile)]
     # Aux_Variables: extra plotfile comps copied through to the output
     # (curvature.cpp:103-106,182-190)
     aux_names = [n for n in pp.query_str_list("Aux_Variables", [])
@@ -377,9 +377,11 @@ def main(args: dict) -> None:
         sym_dir=pp.query_int_list("sym_dir", [0, 0, 0]),
         interp=pp.query_str("cf_interp", "quadratic"),
     )
-    meta, names, fabs = load_plotfile_fabs(
-        infile, names=names, max_level=pp.query_int("finestLevel", None),
-        is_periodic=[bool(p) for p in is_per])
+    src = load_state(args, infile, names=names,
+                     max_level=pp.query_int("finestLevel", None),
+                     is_periodic=[bool(p) for p in is_per],
+                     dtype=config.compute_dtype, device=device)
+    meta = src.meta
     outfile = pp.query_str("outfile", infile + "_K")
     kw = dict(do_strain=do_strain, do_velnormal=do_velnormal, **kwargs)
     sparse = clustered(meta, pp, [meta.n_levels - 1])
@@ -393,16 +395,18 @@ def main(args: dict) -> None:
               "memory footprint or pass finestLevel= to cap levels")
     elif sparse:
         print("curvature: sparse refinement detected -> clustered path")
-        n = curvature_clustered(meta, names, fabs, device, progress_name,
-                                aux_names, outfile, **kw)
+        n = curvature_clustered(meta, src.names, src.fabs, device,
+                                progress_name, aux_names, outfile, **kw)
         print(f"wrote {outfile} ({n} clusters)")
         return
-    dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           config.compute_dtype)
+    dstate = dense_state(args, src, device, config.compute_dtype)
     out = _with_aux(compute_curvature_dense(dstate, progress_name, **kw),
                     dstate, aux_names, range(meta.n_levels))
-    out.to_plotfile(outfile)
-    print(f"wrote {outfile}")
+    sess = get_session(args)
+    if sess is not None:
+        sess.put_plotfile(outfile, out)
+    if stage_write_plotfile(args, out, outfile):
+        print(f"wrote {outfile}")
 
 
 def _with_aux(out: DenseAmrState, src: DenseAmrState, aux_names, levels

@@ -17,10 +17,11 @@ from typing import Optional, Sequence
 
 from .. import config
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.filter import filter_weights, separable_filter
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state,
+                       stage_write_plotfile, var_names)
 from .grad import refuse_unported
 
 
@@ -58,10 +59,11 @@ def main(args: dict) -> None:
     # only the filtered components are read (all of them by default)
     want = pp.query_str_list("variables", None) or pp.query_str_list(
         "vars", None)
-    meta, names, fabs = load_plotfile_fabs(
-        infile, names=want, max_level=pp.query_int("max_filter_level", None))
-    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                       config.compute_dtype)
+    src = load_state(args, infile, names=want,
+                     max_level=pp.query_int("max_filter_level", None),
+                     dtype=config.compute_dtype, device=device)
+    names = want or var_names(args, infile)
+    ds = dense_state(args, src, device, config.compute_dtype)
     # filter_type: PelePhysics integer codes (filterPlt.cpp:80; Filter.H
     # box=1, gaussian=2) or the spelled-out name
     kind = pp.query_str("filter_type", "box")
@@ -75,5 +77,8 @@ def main(args: dict) -> None:
         names=names)
     del ds
     outfile = pp.query_str("outfile", infile + "_filt")
-    out.to_plotfile(outfile)
-    print(f"wrote {outfile}")
+    sess = get_session(args)
+    if sess is not None:
+        sess.put_plotfile(outfile, out)
+    if stage_write_plotfile(args, out, outfile):
+        print(f"wrote {outfile}")

@@ -15,10 +15,10 @@ import torch
 from .. import config
 from ..amr.box import decompose
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..io.plotfile import write_plotfile
 from ..ops.dense_fill import _upsample_axis
 from ..parmparse import ParmParse
+from ..session import load_dense
 from .grad import refuse_unported
 
 
@@ -51,10 +51,8 @@ def main(args: dict) -> None:
     infile = pp.get_str("infile")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    meta, names, fabs = load_plotfile_fabs(infile)
-    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                       torch.float64)
-    del fabs
+    ds = load_dense(args, infile, device, torch.float64, widen_ok=True)
+    meta, names = ds.meta, ds.names
     lev = pp.query_int("output_level", meta.n_levels - 1)
     mgs = pp.query_int("output_max_grid_size", 32)
     dense = flatten_to_level(ds, lev, pp.query_str("interp", "linear"))

@@ -26,13 +26,14 @@ import torch
 from .. import config
 from ..amr.cluster import cluster_substates, clustered, coarse_only_state
 from ..amr.dense import DenseAmrState, PlotfileRecords
-from ..amr.hierarchy import load_plotfile_fabs
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import FOEXTRAP, REFLECT_EVEN
 from ..ops.grad_kernels import grad_mag
 from ..ops.restrict import flux_matched_gradient
 from ..ops.stencil import magnitude
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state,
+                       stage_write_plotfile)
 
 
 def grad_bc(is_per: Sequence[bool], sym_dir: Optional[Sequence[int]] = None):
@@ -122,9 +123,10 @@ def main(args: dict) -> None:
     flux_match = pp.query_bool("fluxMatch", False)
     interp = pp.query_str("cf_interp", "quadratic")
 
-    meta, names, fabs = load_plotfile_fabs(
-        infile, names=[var] + list(aux), max_level=finest,
-        is_periodic=[bool(p) for p in is_per])
+    src = load_state(args, infile, names=[var] + list(aux),
+                     max_level=finest, is_periodic=[bool(p) for p in is_per],
+                     dtype=config.compute_dtype, device=device)
+    meta = src.meta
     kw = dict(aux=tuple(aux), sym_dir=sym_dir, interp=interp)
     sparse = clustered(meta, pp, range(meta.n_levels))
     if sparse and flux_match:
@@ -135,14 +137,17 @@ def main(args: dict) -> None:
         sparse = False
     if sparse:
         print("grad: sparse refinement detected -> clustered path")
-        n = grad_clustered(meta, names, fabs, device, var, outfile, **kw)
+        n = grad_clustered(meta, src.names, src.fabs, device, var, outfile,
+                           **kw)
         print(f"wrote {outfile} ({n} clusters)")
         return
-    dstate = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           config.compute_dtype)
+    dstate = dense_state(args, src, device, config.compute_dtype)
     out = compute_grad_dense(dstate, var, flux_match=flux_match, **kw)
-    out.to_plotfile(outfile)
-    print(f"wrote {outfile}")
+    sess = get_session(args)
+    if sess is not None:
+        sess.put_plotfile(outfile, out)
+    if stage_write_plotfile(args, out, outfile):
+        print(f"wrote {outfile}")
 
 
 def grad_clustered(meta, names, fabs, device, var: str, outfile: str,

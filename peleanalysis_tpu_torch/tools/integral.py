@@ -28,9 +28,9 @@ import torch
 
 from .. import config
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..ops.stats import directional_sum
 from ..parmparse import ParmParse
+from ..session import load_dense
 from .grad import refuse_unported
 
 
@@ -232,10 +232,9 @@ def main(args: dict) -> None:
     refuse_unported(pp)
 
     load = list(var_names) + ([c_name] if c_name else [])
-    meta, names, fabs = load_plotfile_fabs(infile, names=load,
-                                           max_level=finest)
-    ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                       config.compute_dtype)
+    ds = load_dense(args, infile, device, config.compute_dtype,
+                    names=list(dict.fromkeys(load)), max_level=finest)
+    meta = ds.meta
 
     if idim == 1:
         int_dirs = [pp.get_int("dir")]

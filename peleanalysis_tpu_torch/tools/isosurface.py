@@ -24,16 +24,16 @@ import torch
 from .. import config
 from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..geom.marching_cubes import (extract_isosurface,
                                    extract_isosurface_sparse, surface_area)
 from ..geom.marching_squares import extract_isolines
 from ..geom.mef_tools import assemble_polylines
 from ..io.mef import write_mef, write_mef_tecplot
-from ..io.plotfile import PlotfileReader
 from ..io.xdmf import write_xdmf
 from ..native import savetxt_fast
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state, stage_submit_io,
+                       stage_writes, var_names)
 from .build_distance import distance_state
 from .grad import refuse_unported
 
@@ -58,14 +58,14 @@ def main(args: dict) -> None:
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
 
-    var_names = PlotfileReader(infile).var_names
+    avail = var_names(args, infile)
     extras = pp.query_str_list("comps", [])
-    extras = [var_names[int(c)] if c.isdigit() else c for c in extras]
+    extras = [avail[int(c)] if c.isdigit() else c for c in extras]
     if pp.contains("sComp") or pp.contains("nComp"):
         # reference-style comp-range selection (isosurface.cpp sComp/nComp)
         s = pp.query_int("sComp", 0)
         n = pp.query_int("nComp", 1)
-        extras = extras + [v for v in var_names[s: s + n]
+        extras = extras + [v for v in avail[s: s + n]
                            if v not in extras]
     if not pp.query_bool("rm_external_elements", True):
         print("isosurface: rm_external_elements=0 ignored — the canonical "
@@ -74,48 +74,64 @@ def main(args: dict) -> None:
 
     t0 = time.perf_counter()
     load = [iso_name] + [n for n in extras if n != iso_name]
-    meta, names, fabs = load_plotfile_fabs(
-        infile, names=load, max_level=finest,
-        is_periodic=[bool(p) for p in is_per])
+    src = load_state(args, infile, names=load, max_level=finest,
+                     is_periodic=[bool(p) for p in is_per],
+                     dtype=torch.float64, device=device)
+    meta = src.meta
     fin = meta.n_levels - 1
     sparse = not meta.ndim2 and clustered(
         meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
     label = f"{meta.time:g}"
     if sparse:
         print("isosurface: sparse refinement detected -> clustered path")
-        base = DenseAmrState.coarse_only(meta, names, fabs, device,
+        base = DenseAmrState.coarse_only(meta, src.names, src.fabs, device,
                                          torch.float64)
         t1 = time.perf_counter()
-        mef = extract_isosurface_sparse(base, fabs[fin], iso_name, iso_val,
-                                        extras, label=label)
+        mef = extract_isosurface_sparse(base, src.fabs[fin], iso_name,
+                                        iso_val, extras, label=label)
         del base
     else:
-        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           torch.float64)
+        ds = dense_state(args, src, device, torch.float64)
         t1 = time.perf_counter()
         if meta.ndim2:
             # DIM=2 plotfile: marching squares -> polyline contour MEF
             mef = extract_isolines(ds, iso_name, iso_val, extras,
                                    label=label)
         else:
+            # a pipeline stage with write=0 keeps the surface on the card:
+            # a downstream stream stage copies only the seed xyz columns
+            defer = (get_session(args) is not None and not stage_writes(args)
+                     and engine == "enum")
             mef = extract_isosurface(ds, iso_name, iso_val, extras,
-                                     label=label, classify=engine)
+                                     label=label, classify=engine,
+                                     defer=defer)
     t2 = time.perf_counter()
     base = pp.query_str("outfile_base", f"{infile}_{iso_name}_{iso_val:g}")
-    if pp.query_bool("writeSurf", True):
+    sess = get_session(args)
+    if sess is not None:
+        # later stages (stream isoFile=, the MEF tools) resolve these names
+        # in the session before reading a file
+        sess.put_surface(base + ".mef", mef)
+        sess.put_surface(base + ".dat", mef)
+    if pp.query_bool("writeSurf", True) and stage_writes(args):
+        # the surface is on the host here (defer only with write=0): the
+        # file writes may go to the write-back thread
         fmt = pp.query_str("surfFormat", "MEF").upper()
         if fmt == "MEF":
-            write_mef(base + ".mef", mef)
+            stage_submit_io(args, base + ".mef",
+                            lambda: write_mef(base + ".mef", mef))
             print(f"wrote {base}.mef  ({mef.n_nodes} nodes, "
                   f"{mef.n_elts} elements)")
         elif fmt == "XDMF":
             write_xdmf(base, mef, iso_name, iso_val, meta.time)
             print(f"wrote {base}.xmf/.mesh")
         else:
-            write_mef_tecplot(base + ".dat", mef)
+            stage_submit_io(args, base + ".dat",
+                            lambda: write_mef_tecplot(base + ".dat", mef))
             print(f"wrote {base}.dat")
     if pp.query_bool("computeArea", False):
-        print(f"Total area of surface: {surface_area(mef):.10g}")
+        m = mef.to_mef() if hasattr(mef, "to_mef") else mef
+        print(f"Total area of surface: {surface_area(m):.10g}")
     if pp.query_bool("build_distance_function", False):
         # in-run signed-distance plotfile (isosurface.cpp:1595-1654 per-box
         # make_level_set3 + :1732-1748 WriteMultiLevelPlotfile), negative

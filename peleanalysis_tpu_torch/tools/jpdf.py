@@ -18,8 +18,10 @@ binX1/binX2.  Reproduced:
     (jpdf.cpp:560-740); multi-file ``do_average`` pass (jpdf.cpp:935-1049)
 
 All pairs of a level are one launch of the stats kernel on the card
-(``ops/stats_kernels.joint_hist``).  The files of a series are read one
-after another; ``prefetch=`` is accepted and changes nothing.  Sparse
+(``ops/stats_kernels.joint_hist``).  ``prefetch=N`` (default 1) reads the
+next N files of a series on a background thread while the current one is
+binned (``io/prefetch.iter_states``); ``prefetch=0`` reads them one after
+another, and the outputs do not depend on it.  Sparse
 refinement (the finest union bbox wasting >4x its cells) accumulates the
 coarse levels once and the finest level cluster by cluster (JAX :294-332):
 one pass over the parts for the variables' min/max, a second for the
@@ -41,8 +43,9 @@ from ..io.fab import write_fab
 from ..io.plotfile import write_plotfile
 from ..ops.stats import joint_pdf, joint_pdf_multi, masked_mean
 from ..ops.stencil import _const
+from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
-from .conditional_mean import _fetch, load_parts
+from .conditional_mean import _fetch, stats_parts
 from .curvature import _masked_minmax
 from .grad import refuse_unported
 
@@ -255,8 +258,8 @@ def main(args: dict) -> None:
     [do_conditioning=0|1|2 cVar=i norm_cVal=0 cNormMin/Max cMin cMax]
     [do_stoichiometry=0 Hlist=... Olist=...] [do_average=0]
     [output_gnuplot/matlab/tecplot/fab/scatter/plotfile=..] [outSuffix=]
-    [finestLevel=] [prefetch=1 (accepted; files are read one after another)]
-    [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
+    [finestLevel=] [prefetch=1 (files read ahead on a background thread; 0:
+    one after another)] [force_dense=0] [cluster_batch=0] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
     nbins = pp.query_int("nBins", 64)
@@ -270,7 +273,7 @@ def main(args: dict) -> None:
     finest = pp.query_int("finestLevel", None)
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    pp.query_int("prefetch", 1)
+    depth = query_prefetch(pp)
 
     names = list(var_in)
     if do_stoich:
@@ -314,8 +317,12 @@ def main(args: dict) -> None:
                                    & (cval <= _const(cmax, cval)))
         return fields, cond_levels
 
-    for plt in infiles:
-        meta, parts = load_parts(plt, names, finest, device, pp, "jpdf")
+    series = iter_states(args, infiles, names=list(dict.fromkeys(names)),
+                         max_level=finest, dtype=config.compute_dtype,
+                         device=device, depth=depth)
+    for plt, src in series:
+        meta = src.meta
+        parts = stats_parts(args, src, device, pp, "jpdf")
         bounds = {}
         for i, n in enumerate(names_all):
             mm = pp.query_float_list(f"useminmax{i+1}", None)

@@ -10,7 +10,9 @@ the same keys, defaults, printouts and output names.  The geometry lives
 in ``geom/mef_tools.py`` and runs on ``device=`` (default ``cuda``); the
 copy and format verbs (``mergeMEF``, ``surfDATtoMEF``, ``surfMEFtoDAT``)
 and decimateMEF's C++ collapse (``native.qem_decimate``) run on the host,
-and still refuse ``device=cuda`` when there is no card.
+and still refuse ``device=cuda`` when there is no card.  In a session
+(``pipeline``, ``serve``) the input surfaces resolve by name from earlier
+stages and the outputs are registered; ``write=0`` skips the MEF files.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..io.mef import (MEF, read_mef, read_mef_tecplot, write_mef,
                       write_mef_tecplot)
 from ..native import qem_decimate
 from ..parmparse import ParmParse
+from ..session import get_session, stage_writes
 
 
 def _resolve(mef: MEF, toks):
@@ -34,64 +37,79 @@ def main(args: dict) -> None:
     pp = ParmParse(args)
     tool = args.get("_tool", ["?"])[0]
     dev = config.get_device(pp.query_str("device", "cuda"))
+    sess = get_session(args)
+    writes = stage_writes(args)
+
+    def _rmef(path):
+        # in a session, an earlier stage's surface resolves by name
+        m = sess.get_surface(path) if sess is not None else None
+        if m is None:
+            return read_mef(path)
+        return m.to_mef() if hasattr(m, "to_mef") else m
+
+    def _wmef(path, m):
+        if sess is not None:
+            sess.put_surface(path, m)
+        if writes:
+            write_mef(path, m)
 
     if tool == "combineMEF":
-        a = read_mef(pp.get_str("infile1"))
-        b = read_mef(pp.get_str("infile2"))
+        a = _rmef(pp.get_str("infile1"))
+        b = _rmef(pp.get_str("infile2"))
         out = G.combine_mef(a, b,
                             _resolve(a, pp.query_str_list(
                                 "comps1", a.names[a.ndim:])),
                             _resolve(b, pp.query_str_list(
                                 "comps2", b.names[b.ndim:])), dev)
-        write_mef(pp.query_str("outfile", "combined.mef"), out)
+        _wmef(pp.query_str("outfile", "combined.mef"), out)
 
     elif tool == "mergeMEF":
-        a = read_mef(pp.get_str("infile1"))
-        b = read_mef(pp.get_str("infile2"))
-        write_mef(pp.query_str("outfile", "merged.mef"), G.merge_mef(a, b))
+        a = _rmef(pp.get_str("infile1"))
+        b = _rmef(pp.get_str("infile2"))
+        _wmef(pp.query_str("outfile", "merged.mef"), G.merge_mef(a, b))
 
     elif tool == "multMEF":
-        a = read_mef(pp.get_str("infile1"))
-        b = read_mef(pp.get_str("infile2"))
+        a = _rmef(pp.get_str("infile1"))
+        b = _rmef(pp.get_str("infile2"))
         comps = _resolve(a, pp.get_str_list("comps"))
-        write_mef(pp.query_str("outfile", "mult.mef"),
+        _wmef(pp.query_str("outfile", "mult.mef"),
                   G.mult_mef(a, b, comps, dev))
 
     elif tool == "scaleMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         comps = _resolve(a, pp.get_str_list("comps"))
         factors = pp.get_float_list("factors")
-        write_mef(pp.query_str("outfile", "scaled.mef"),
+        _wmef(pp.query_str("outfile", "scaled.mef"),
                   G.scale_mef(a, comps, factors, dev))
 
     elif tool == "sliceMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         d = pp.get_int("dir")
         locs = pp.get_float_list("locs")
         outs = G.slice_mef(a, d, locs, dev)
         base = pp.query_str("outfile_base", pp.get_str("infile") + "_slice")
         for loc, m in zip(locs, outs):
             if pp.query_bool("write_mef", True):
-                write_mef(f"{base}_{loc:g}.mef", m)
+                _wmef(f"{base}_{loc:g}.mef", m)
             if pp.query_bool("write_tec", False):
                 write_mef_tecplot(f"{base}_{loc:g}.dat", m)
 
     elif tool == "isoMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         comp = pp.get_str("comp")
         comp = a.names[int(comp)] if comp.isdigit() else comp
         val = pp.get_float("isoVal")
         out = G.iso_mef(a, comp, val, dev)
-        write_mef(pp.query_str("outfile", f"iso_{comp}_{val:g}.mef"), out)
+        _wmef(pp.query_str("outfile", f"iso_{comp}_{val:g}.mef"), out)
 
     elif tool == "smoothMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         comps = _resolve(a, pp.query_str_list("comps", a.names[a.ndim:]))
         out = G.smooth_mef(a, comps, dev, pp.query_int("niter", 1))
-        write_mef(pp.query_str("outfile", "smoothed.mef"), out)
+        _wmef(pp.query_str("outfile", "smoothed.mef"), out)
 
     elif tool == "trimMEFgen":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         comps = _resolve(a, pp.query_str_list("comps", []))
         signs = pp.query_str_list("signs", ["+"] * len(comps))
         vals = pp.query_float_list("vals", [0.0] * len(comps))
@@ -105,10 +123,10 @@ def main(args: dict) -> None:
             ar = G.element_areas(G.nodes_on(out, dev), e, out.ndim)
             print(f"  Triangle area min, max: {ar.min().item()} , "
                   f"{ar.max().item()}")
-        write_mef(pp.query_str("outfile", "trimmed.mef"), out)
+        _wmef(pp.query_str("outfile", "trimmed.mef"), out)
 
     elif tool == "binMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         comps = _resolve(a, pp.get_str_list("binComps"))
         bmin = pp.get_float_list("binMin")
         bmax = pp.get_float_list("binMax")
@@ -141,7 +159,7 @@ def main(args: dict) -> None:
                           out[None, :, :, None])
 
     elif tool == "decimateMEF":
-        a = read_mef(pp.get_str("infile"))
+        a = _rmef(pp.get_str("infile"))
         target = pp.query_int("face_target", max(a.n_elts // 2, 4))
         # full qslim config surface (Tools/qslim/cmdline.cpp:25-36)
         v, t, attr = qem_decimate(
@@ -154,19 +172,19 @@ def main(args: dict) -> None:
             compactness_ratio=pp.query_float("compactness_ratio", 0.0))
         nodes = np.concatenate([v, attr], axis=1) if attr is not None else v
         out = MEF(a.label, a.names, nodes, t.astype(np.int32))
-        write_mef(pp.query_str("outfile", "decimated.mef"), out)
+        _wmef(pp.query_str("outfile", "decimated.mef"), out)
         print(f"decimated {a.n_elts} -> {out.n_elts} elements")
 
     elif tool == "surfDATtoMEF":
         m = read_mef_tecplot(pp.get_str("infile"))
-        write_mef(pp.query_str("outfile", "surf.mef"), m)
+        _wmef(pp.query_str("outfile", "surf.mef"), m)
 
     elif tool == "surfMEFtoDAT":
-        m = read_mef(pp.get_str("infile"))
+        m = _rmef(pp.get_str("infile"))
         write_mef_tecplot(pp.query_str("outfile", "surf.dat"), m)
 
     elif tool == "checkIso":
-        m = read_mef(pp.get_str("infile"))
+        m = _rmef(pp.get_str("infile"))
         for k, v in G.check_iso(m, dev).items():
             print(f"{k}: {v}")
 

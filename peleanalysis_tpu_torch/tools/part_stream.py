@@ -24,11 +24,10 @@ import torch
 from .. import config
 from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..io.particles import write_particles
-from ..io.plotfile import PlotfileReader
 from ..io.stream_data import StreamData, compute_inside_nodes, write_stream_data
 from ..parmparse import ParmParse
+from ..session import dense_state, load_state, var_names
 from ..stream.trace import trace_streamlines, trace_streamlines_sparse
 from .grad import refuse_unported
 from .stream import get_seeds, write_tecplot_lines
@@ -73,19 +72,22 @@ def main(args: dict) -> None:
     refuse_unported(pp)
 
     vel = [v for v in ("x_velocity", "y_velocity", "z_velocity")
-           if v in PlotfileReader(infile).var_names]
-    meta, names, fabs = load_plotfile_fabs(
-        infile, names=vel, max_level=pp.query_int("finestLevel", None))
+           if v in var_names(args, infile)]
+    src = load_state(args, infile, names=vel,
+                     max_level=pp.query_int("finestLevel", None),
+                     dtype=torch.float64, device=device)
+    meta, fabs = src.meta, src.fabs
     sparse = clustered(meta, pp, [meta.n_levels - 1]) and not one_per_cell
-    make = DenseAmrState.coarse_only if sparse else \
-        DenseAmrState.from_level_fabs
-    ds = make(meta, names, fabs, device, torch.float64)
+    ds = (DenseAmrState.coarse_only(meta, src.names, fabs, device,
+                                    torch.float64) if sparse
+          else dense_state(args, src, device, torch.float64))
 
     elements = np.zeros((0, 3), np.int32)
     if one_per_cell:
         seeds = seeds_one_per_cell(ds, pp.query_int("seedStride", 1))
     else:
-        seeds, elements = get_seeds(pp)
+        seeds, get_elts = get_seeds(pp)
+        elements = get_elts()
 
     if sparse:
         print("partStream: sparse refinement detected -> clustered path")

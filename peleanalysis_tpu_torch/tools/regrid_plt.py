@@ -22,6 +22,7 @@ from ..amr.box import Box, BoxArray, decompose
 from ..amr.dense import DenseAmrState, PlotfileRecords
 from ..amr.hierarchy import AmrMeta
 from ..parmparse import ParmParse
+from ..session import load_dense
 from .grad import refuse_unported
 
 
@@ -67,7 +68,7 @@ def main(args: dict) -> None:
     mgs = pp.query_int("max_grid_size", 32)
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    ds = DenseAmrState.from_plotfile(infile, device, dtype=torch.float64)
+    ds = load_dense(args, infile, device, torch.float64, widen_ok=True)
     outfile = pp.query_str("outfile", infile + "_rg")
     regrid(ds, mgs).write(outfile)
     print(f"wrote {outfile}")

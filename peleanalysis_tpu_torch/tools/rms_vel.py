@@ -7,9 +7,10 @@ the finest level only, accumulates volume-weighted <u> and <u^2>
 urms = sqrt(mean over dims of (<u_d^2> - <u_d>^2)) (rmsVel.cpp:125-127).
 
 The sums run on the state's device in the compute dtype, and a file's sums
-come to the host in one copy.  The files are read one after another:
-``prefetch=`` is accepted and changes nothing (the JAX package's
-read-ahead thread is not ported).
+come to the host in one copy.  ``prefetch=N`` (default 1) reads the next
+N files on a background thread while the current one is summed
+(``io/prefetch.iter_states``); ``prefetch=0`` reads them one after
+another.
 """
 from __future__ import annotations
 
@@ -18,9 +19,9 @@ import torch
 
 from .. import config
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
-from ..io.plotfile import PlotfileReader
+from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
+from ..session import dense_state, var_names
 from .grad import refuse_unported
 
 VEL = ["x_velocity", "y_velocity", "z_velocity"]
@@ -50,8 +51,8 @@ def rms_velocity(ds: DenseAmrState) -> float:
 
 def main(args: dict) -> None:
     """CLI: rmsVel infile=<plt>... [finestLevel=] [outfile=RmsVel.dat]
-    [prefetch=1 (accepted; files are read one after another)]
-    [device=cuda|cpu].  Computes in the compute dtype (float32 unless
+    [prefetch=1 (files read ahead on a background thread; 0: one after
+    another)] [device=cuda|cpu].  Computes in the compute dtype (float32 unless
     dtype=float64)."""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
@@ -59,19 +60,22 @@ def main(args: dict) -> None:
     out = pp.query_str("outfile", "RmsVel.dat")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    pp.query_int("prefetch", 1)
-    rows = []
-    for plt in infiles:
-        avail = PlotfileReader(plt).var_names
+    depth = query_prefetch(pp)
+
+    def vel_of(plt):
+        avail = var_names(args, plt)
         vel = [n for n in VEL if n in avail]
         if len(vel) < 2:
             raise ValueError(f"{plt}: no velocity components found "
                              f"(have {avail})")
-        meta, names, fabs = load_plotfile_fabs(plt, names=vel,
-                                               max_level=finest)
-        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           config.compute_dtype)
-        rows.append((meta.time, rms_velocity(ds)))
+        return vel
+
+    rows = []
+    for _, src in iter_states(args, infiles, names=vel_of, max_level=finest,
+                              dtype=config.compute_dtype, device=device,
+                              depth=depth):
+        ds = dense_state(args, src, device, config.compute_dtype)
+        rows.append((src.meta.time, rms_velocity(ds)))
         del ds
     with open(out, "w") as f:
         for t, u in rows:

@@ -18,11 +18,10 @@ import torch
 from .. import config
 from ..amr.cluster import cluster_substates, clustered
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
-from ..io.plotfile import PlotfileReader
-from ..io.stream_data import StreamData, read_stream_data, write_stream_data
+from ..io.stream_data import StreamData, write_stream_data
 from ..ops.dense_fill import fill_dense_arrays
 from ..parmparse import ParmParse
+from ..session import dense_state, load_state, read_stream, var_names
 from ..stream.surface import arc_length
 from ..stream.trace import (_sample_fields, assign_seeds_to_levels,
                             finest_cluster_of)
@@ -111,16 +110,16 @@ def main(args: dict) -> None:
     path_file = pp.get_str("pathFile")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    sd = read_stream_data(path_file)
+    sd = read_stream(args, path_file)
 
-    r = PlotfileReader(plotfile)
+    avail = var_names(args, plotfile)
     if pp.contains("comps"):
-        names = [r.var_names[int(c)] if c.isdigit() else c
+        names = [avail[int(c)] if c.isdigit() else c
                  for c in pp.get_str_list("comps")]
     else:
         s = pp.query_int("sComp", 0)
-        n = pp.query_int("nComp", len(r.var_names))
-        names = r.var_names[s: s + n]
+        n = pp.query_int("nComp", len(avail))
+        names = avail[s: s + n]
 
     per_pass = pp.query_int("nCompsPerPass", -1)
     if per_pass <= 0:
@@ -131,18 +130,17 @@ def main(args: dict) -> None:
     sampled = []
     for i in range(0, len(names), per_pass):
         grp = names[i: i + per_pass]
-        meta, lnames, fabs = load_plotfile_fabs(plotfile, names=grp,
-                                                max_level=finest,
-                                                is_periodic=is_per)
-        if clustered(meta, pp, [meta.n_levels - 1]):
+        src = load_state(args, plotfile, names=grp, max_level=finest,
+                         is_periodic=is_per, dtype=torch.float64,
+                         device=device)
+        if clustered(src.meta, pp, [src.meta.n_levels - 1]):
             print("sampleStreamlines: sparse refinement -> clustered path")
-            base = DenseAmrState.coarse_only(meta, lnames, fabs, device,
-                                             torch.float64)
-            sampled.append(sample_onto_lines_sparse(base, fabs[-1],
+            base = DenseAmrState.coarse_only(src.meta, src.names, src.fabs,
+                                             device, torch.float64)
+            sampled.append(sample_onto_lines_sparse(base, src.fabs[-1],
                                                     sd.lines, grp))
         else:
-            ds = DenseAmrState.from_level_fabs(meta, lnames, fabs, device,
-                                               torch.float64)
+            ds = dense_state(args, src, device, torch.float64)
             sampled.append(sample_onto_lines(ds, sd.lines, grp))
     # the reference schema is X,Y,Z, distance_from_seed, <vars>
     # (sampleStreamlines.cpp:145,203): signed arclength, zero at the seed

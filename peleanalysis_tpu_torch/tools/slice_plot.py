@@ -19,6 +19,7 @@ from ..amr.box import Box
 from ..amr.dense import DenseAmrState
 from ..io.fab import write_fab
 from ..parmparse import ParmParse
+from ..session import load_dense
 from .flatten_amr import flatten_to_level
 from .grad import refuse_unported
 from .integral import write_pgm, write_ppm
@@ -56,9 +57,8 @@ def main(args: dict) -> None:
     finest = pp.query_int("finestLevel", None)
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    ds = DenseAmrState.from_plotfile(infile, device, names=[var],
-                                     max_level=finest,
-                                     dtype=config.compute_dtype)
+    ds = load_dense(args, infile, device, config.compute_dtype, names=[var],
+                    max_level=finest)
     geom = ds.meta.geoms[ds.meta.n_levels - 1]
     if pp.contains("sliceloc"):
         idx = pp.get_int("sliceloc")

@@ -19,32 +19,38 @@ import torch
 from .. import config
 from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
 from ..io.mef import MEF, read_mef, write_mef
-from ..io.plotfile import PlotfileReader
 from ..io.stream_data import StreamData, compute_inside_nodes, write_stream_data
 from ..native import tecplot_zones
 from ..parmparse import ParmParse
+from ..session import (dense_state, get_session, load_state, stage_submit_io,
+                       stage_writes, var_names)
 from ..stream import surface as surf
 from ..stream.trace import (seed_rake, trace_streamlines,
                             trace_streamlines_sparse)
 from .grad import refuse_unported
 
 
-def get_seeds(pp: ParmParse):
-    """Seed cloud and its connectivity (stream.cpp:450-532)."""
+def get_seeds(pp: ParmParse, sess=None):
+    """Seed cloud and a thunk of its connectivity (stream.cpp:450-532).  A
+    surface registered in ``sess`` under the isoFile name serves it: from
+    a ``DeferredSurface`` the positions copy only the xyz columns, and the
+    elements are copied only when an output needs them."""
     if pp.contains("isoFile"):
-        mef = read_mef(pp.get_str("isoFile"))
-        return mef.positions(), mef.elements
+        name = pp.get_str("isoFile")
+        mef = sess.get_surface(name) if sess is not None else None
+        if mef is None:
+            mef = read_mef(name)
+        return mef.positions(), (lambda: mef.elements)
     empty = np.zeros((0, 3), np.int32)
     if pp.contains("seedLoc"):
         loc = pp.get_float_list("seedLoc")
-        return np.array([loc[:3]]), empty
+        return np.array([loc[:3]]), (lambda: empty)
     if pp.contains("seedRakeL"):
         n = pp.query_int("seedRakeNum", 10)
         seeds = seed_rake(pp.get_float_list("seedRakeL")[:3],
                           pp.get_float_list("seedRakeR")[:3], n)
-        return seeds, empty
+        return seeds, (lambda: empty)
     raise ValueError("must specify one of isoFile / seedLoc / seedRakeL+R")
 
 
@@ -85,7 +91,7 @@ def main(args: dict) -> None:
     if not pp.contains("streamFile") and not pp.contains("outFile"):
         raise ValueError("Must specify streamFile or outFile")
 
-    avail = PlotfileReader(plotfile).var_names
+    avail = var_names(args, plotfile)
     if pp.contains("aux_sComp") or pp.contains("aux_nComp"):
         # reference-style aux comp range (stream.cpp:645-653)
         s = pp.query_int("aux_sComp", 0)
@@ -106,18 +112,19 @@ def main(args: dict) -> None:
                 sample.append(extra)
     load = load + [s for s in sample if s not in load]
 
-    meta, names, fabs = load_plotfile_fabs(
-        plotfile, names=load, max_level=finest,
-        is_periodic=[bool(p) for p in is_per])
+    sess = get_session(args)
+    src = load_state(args, plotfile, names=load, max_level=finest,
+                     is_periodic=[bool(p) for p in is_per],
+                     dtype=torch.float64, device=device)
+    meta = src.meta
     sparse = clustered(meta, pp, [meta.n_levels - 1])
     if sparse:
         print("stream: sparse refinement detected -> clustered path")
-        ds = DenseAmrState.coarse_only(meta, names, fabs, device,
+        ds = DenseAmrState.coarse_only(meta, src.names, src.fabs, device,
                                        torch.float64)
     else:
-        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           torch.float64)
-    seeds, elements = get_seeds(pp)
+        ds = dense_state(args, src, device, torch.float64)
+    seeds, get_elts = get_seeds(pp, sess)
     if pp.contains("bounds"):
         # limit seed points to a physical sub-box, dropping elements that
         # lose a node (trim_surface, stream.cpp:217-291 + 543-560)
@@ -125,9 +132,11 @@ def main(args: dict) -> None:
         keep = np.all((seeds >= np.asarray(barr[:3]))
                       & (seeds <= np.asarray(barr[3:6])), axis=1)
         renum = np.cumsum(keep) - 1
+        elements = np.asarray(get_elts())
         if len(elements):
             e_keep = keep[elements].all(axis=1)
             elements = renum[elements[e_keep]]
+        get_elts = (lambda e=elements: e)
         seeds = seeds[keep]
         if verbose:
             print(f"bounds trim: {keep.sum()}/{len(keep)} seeds kept")
@@ -142,23 +151,31 @@ def main(args: dict) -> None:
               march_engine=pp.query_str("marchEngine", "auto"),
               ngrow=pp.query_int("nGrow", None), fetch_compress=fcomp)
     if sparse:
-        lines = trace_streamlines_sparse(ds, fabs[-1], seeds, n_rk, h_rk,
-                                         **kw)
+        lines = trace_streamlines_sparse(ds, src.fabs[-1], seeds, n_rk,
+                                         h_rk, **kw)
     else:
         lines = trace_streamlines(ds, seeds, n_rk, h_rk, **kw)
     del ds
     names = ["X", "Y", "Z"] + sample
-    elements = np.asarray(elements, np.int32)
 
-    if pp.contains("streamFile"):
+    if sess is not None:
+        out_name = (pp.query_str("streamFile", None)
+                    or pp.query_str("outFile", None))
+        sess.put_lines(out_name, names, lines, get_elts, meta)
+    writes = stage_writes(args)
+    if pp.contains("streamFile") and writes:
         inside = compute_inside_nodes(meta, lines[:, lines.shape[1] // 2, :3])
+        sd = StreamData(names, np.asarray(get_elts(), np.int32), inside,
+                        lines)
         sf, sv = pp.get_str("streamFile"), pp.query_str("sd_version", "0")
-        write_stream_data(sf, StreamData(names, elements, inside, lines),
-                          meta=meta, version=sv)
+        # host work over host arrays: write-back eligible
+        stage_submit_io(args, sf, lambda: write_stream_data(
+            sf, sd, meta=meta, version=sv))
         print(f"wrote {sf}")
-    if pp.contains("outFile"):
+    if pp.contains("outFile") and writes:
         of = pp.get_str("outFile")
-        write_tecplot_lines(of, names, lines)
+        stage_submit_io(args, of,
+                        lambda: write_tecplot_lines(of, names, lines))
         print(f"wrote {of}")
 
     if build_alt:
@@ -189,12 +206,16 @@ def main(args: dict) -> None:
         if dt != 0.0:
             nodes[:, : len(names)] = surf.advect_points(
                 nodes[:, : len(names)], names, dt)
-        mef = MEF(f"{meta.time:g}", out_names, nodes, elements)
+        mef = MEF(f"{meta.time:g}", out_names, nodes,
+                  np.asarray(get_elts(), np.int32))
         # advectColdIso names the intent (stream.cpp:979-1001): the alt
         # surface is the cold iso advected by u*dt, the dt!=0 path above
         pp.query_bool("advectColdIso", False)
         alt_file = pp.query_str(
             "altIsoFile", pp.query_str("altSurfFile",
                                        plotfile + "_altSurf.mef"))
-        write_mef(alt_file, mef)
-        print(f"wrote {alt_file}")
+        if sess is not None:
+            sess.put_surface(alt_file, mef)
+        if writes:
+            write_mef(alt_file, mef)
+            print(f"wrote {alt_file}")

@@ -21,9 +21,9 @@ import torch
 from .. import config
 from ..amr.box import Box
 from ..io.fab import write_fab
-from ..io.stream_data import read_stream_data
 from ..ops.vec3 import sqrt
 from ..parmparse import ParmParse
+from ..session import read_stream
 from ..stream.surface import _crossings_from_mid, _interp_at, arc_length
 
 
@@ -115,7 +115,7 @@ def main(args: dict) -> None:
     infile = pp.get_str("infile")
     outfile = pp.get_str("outfile")
     dev = config.get_device(pp.query_str("device", "cuda"))
-    sd = read_stream_data(infile)
+    sd = read_stream(args, infile)
     if pp.contains("comps"):
         names = [sd.names[int(c)] if c.isdigit() else c
                  for c in pp.get_str_list("comps")]

@@ -14,9 +14,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..io.stream_data import read_stream_data
 from ..native import savetxt_fast
 from ..parmparse import ParmParse
+from ..session import read_stream
 
 
 def scatter_rows(lines: torch.Tensor, names, var_names, cond_name: str,
@@ -39,7 +39,7 @@ def main(args: dict) -> None:
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     dev = config.get_device(pp.query_str("device", "cuda"))
-    sd = read_stream_data(infile)
+    sd = read_stream(args, infile)
     var_names = [sd.names[int(v)] if v.isdigit() else v
                  for v in pp.get_str_list("vars")]
     if pp.contains("condVar") and pp.get_str("condVar"):

@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 
 from .. import config
-from ..io.stream_data import StreamData, read_stream_data, write_stream_data
+from ..io.stream_data import StreamData, write_stream_data
 from ..parmparse import ParmParse
+from ..session import read_stream
 
 
 def main(args: dict) -> None:
@@ -22,7 +23,7 @@ def main(args: dict) -> None:
     infile = pp.get_str("infile")
     outfile = pp.query_str("outfile", infile + "_new")
     config.get_device(pp.query_str("device", "cuda"))
-    sd = read_stream_data(infile)
+    sd = read_stream(args, infile)
 
     if pp.contains("eltIDs"):
         elt_ids = np.array(pp.get_int_list("eltIDs"))

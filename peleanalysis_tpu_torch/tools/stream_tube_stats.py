@@ -32,9 +32,9 @@ import torch
 
 from .. import config
 from ..io.mef import MEF, read_mef, write_mef, write_mef_tecplot
-from ..io.stream_data import read_stream_data
 from ..ops.vec3 import cross, sum3, triangle_areas
 from ..parmparse import ParmParse
+from ..session import read_stream
 from ..stream.surface import arc_length
 
 F64 = torch.float64
@@ -205,7 +205,7 @@ def main(args: dict) -> None:
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     dev = config.get_device(pp.query_str("device", "cuda"))
-    sd = read_stream_data(infile)
+    sd = read_stream(args, infile)
     names = sd.names
     if len(sd.elements) == 0:
         raise ValueError("streamTubeStats requires element connectivity")

@@ -18,8 +18,8 @@ from ..amr.box import Box, BoxArray
 from ..amr.dense import DenseAmrState, PlotfileRecords
 from ..amr.geometry import Geometry
 from ..amr.hierarchy import AmrMeta
-from ..io.plotfile import PlotfileReader
 from ..parmparse import ParmParse
+from ..session import load_dense, var_names
 from .grad import refuse_unported
 
 
@@ -64,20 +64,19 @@ def main(args: dict) -> None:
     b = pp.get_int_list("box")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    r = PlotfileReader(infile)
-    avail = r.var_names
+    avail = var_names(args, infile)
     names = pp.query_str_list("comps", avail)
     if pp.contains("sComp") or pp.contains("nComp"):
         s = pp.query_int("sComp", 0)          # comp range (subPlt.cpp:82-84)
         names = avail[s: s + pp.query_int("nComp", 1)]
-    if r.meta.ndim == 2 and len(b) == 4:
+    ds = load_dense(args, infile, device, torch.float64, names=names,
+                    max_level=pp.query_int("finestLevel", None),
+                    widen_ok=True)
+    if ds.meta.ndim2 and len(b) == 4:
         # 2-D plotfile: box=lox loy hix hiy (z promoted to the unit cell)
         sub = Box((b[0], b[1], 0), (b[2], b[3], 0))
     else:
         sub = Box(tuple(b[:3]), tuple(b[3:6]))
-    ds = DenseAmrState.from_plotfile(
-        infile, device, names=names,
-        max_level=pp.query_int("finestLevel", None), dtype=torch.float64)
     outfile = pp.query_str("outfile", infile + "_sub")
     sub_plotfile(ds, sub).write(outfile)
     print(f"wrote {outfile}")

@@ -13,9 +13,10 @@ yt_post_scrape_tseries script collects.  Only E(k) and the statistics come
 back to the host.  Outputs: ``<base>_<plt>_spectrum.dat`` rows of (k, E(k))
 and ``<base>_stats.dat``.
 
-Loads float64 whatever ``dtype=``.  The files are read one after another:
-``prefetch=`` is accepted and changes nothing (the JAX package's
-read-ahead thread is not ported).
+Loads float64 whatever ``dtype=``.  ``prefetch=N`` (default 1) reads the
+next N files on a background thread while the current one is transformed
+(``io/prefetch.iter_states``); ``prefetch=0`` reads them one after
+another.
 """
 from __future__ import annotations
 
@@ -23,10 +24,9 @@ import numpy as np
 import torch
 
 from .. import config
-from ..amr.dense import DenseAmrState
-from ..amr.hierarchy import load_plotfile_fabs
-from ..io.plotfile import PlotfileReader
+from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
+from ..session import dense_state, select, var_names
 from .flatten_amr import flatten_to_level
 from .grad import refuse_unported
 
@@ -86,22 +86,27 @@ def turbulence_stats(u: torch.Tensor, v: torch.Tensor, w=None) -> dict:
 
 def main(args: dict) -> None:
     """CLI: turbulenceSpectra infile=<plt>... [level=finest]
-    [outfile_base=turb] [prefetch=1 (accepted; files are read one after
-    another)] [device=cuda|cpu].  Loads float64 whatever dtype=."""
+    [outfile_base=turb] [prefetch=1 (files read ahead on a background
+    thread; 0: one after another)] [device=cuda|cpu].  Loads float64 whatever dtype=."""
     pp = ParmParse(args)
     infiles = pp.get_str_list("infiles" if pp.contains("infiles") else "infile")
     base = pp.query_str("outfile_base", "turb")
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
-    pp.query_int("prefetch", 1)
+    depth = query_prefetch(pp)
+
+    def vel_of(plt):
+        avail = var_names(args, plt)
+        return [n for n in VEL if n in avail]
+
     rows = []
-    for plt in infiles:
-        avail = PlotfileReader(plt).var_names
-        meta, names, fabs = load_plotfile_fabs(
-            plt, names=[n for n in VEL if n in avail])
-        ds = DenseAmrState.from_level_fabs(meta, names, fabs, device,
-                                           torch.float64)
-        del fabs
+    for plt, src in iter_states(args, infiles, names=vel_of,
+                                dtype=torch.float64, device=device,
+                                depth=depth):
+        meta = src.meta
+        ds = select(dense_state(args, src, device, torch.float64),
+                    vel_of(plt))
+        del src
         lev = pp.query_int("level", meta.n_levels - 1)
         dense = flatten_to_level(ds, lev)
         del ds

@@ -136,12 +136,15 @@ def test_sparse_refinement_raises(tmp_path, capsys):
 
 
 def test_unknown_and_unported_tools_exit_2(capsys):
-    # a verb of the JAX CLI that the port does not run
-    assert cli.main(["pipeline", "grad", "infile=x"]) == 2
-    assert "not ported" in capsys.readouterr().out
+    # every verb of the JAX CLI is ported: a pipeline with an empty stage
+    # and an unknown tool exit 2, and --help lists the three driver verbs
+    assert cli.main(["pipeline", "--", "grad", "infile=x"]) == 2
+    assert "empty stage" in capsys.readouterr().out
     assert cli.main(["noSuchTool"]) == 2
+    assert "pipeline serve send" in capsys.readouterr().out
     assert cli.main(["--help"]) == 0
-    assert "grad" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "grad" in out and "pipeline serve send" in out
 
 
 def test_cuda_device_without_card_raises(small_plotfile, tmp_path):

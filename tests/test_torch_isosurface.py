@@ -276,8 +276,15 @@ def test_unported_library_paths_raise(plotfiles, tmp_path):
     jds = JaxDense.from_batched(AmrState.from_plotfile(plotfiles["1level"],
                                                        dtype=np.float64))
     pds = port_state(jds)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        pmc.extract_isosurface(pds, "temp", 1000.0, defer=True)
+    # defer=True is ported (DeferredSurface); with want_eids it is refused,
+    # as in the JAX engine
+    eager = pmc.extract_isosurface(pds, "temp", 1000.0)
+    surf = pmc.extract_isosurface(pds, "temp", 1000.0, defer=True)
+    np.testing.assert_array_equal(surf.to_mef().nodes, eager.nodes)
+    np.testing.assert_array_equal(surf.to_mef().elements, eager.elements)
+    with pytest.raises(ValueError, match="want_eids"):
+        pmc.extract_isosurface_enum(pds, "temp", 1000.0, defer=True,
+                                    want_eids=True)
     with pytest.raises(NotImplementedError, match="item 2"):
         pmc.extract_isosurface(pds, "temp", 1000.0, classify="device")
     plt = str(tmp_path / "plt2d")

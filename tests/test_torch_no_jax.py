@@ -81,7 +81,8 @@ def test_every_port_module_imports_without_jax():
               "tools.stream2plt", "tools.stream_scatter",
               "tools.stream_sub", "tools.stream_tube_stats", "chem",
               "chem.mechanism", "chem.kinetics", "chem.qpd",
-              "tools.chem_tools", "tools.sco2", "tools.build_pmf"):
+              "tools.chem_tools", "tools.sco2", "tools.build_pmf",
+              "session", "server", "io.prefetch"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"
@@ -103,7 +104,8 @@ def test_cli_help_runs_without_jax():
     assert "isosurface" in res.stdout
     assert "conditionalMean" in res.stdout and "jpdf" in res.stdout
     tools = res.stdout.split("tools:")[-1].split()
-    assert len(tools) == 56
+    # the 56 tool verbs and the three driver verbs
+    assert len(tools) == 59 and tools[-3:] == ["pipeline", "serve", "send"]
     for t in ("partStream", "integral", "rmsVel", "filterPlt",
               "flattenAMRFile", "turbulenceSpectra", "turbulenceTseries",
               "turbulenceSlice", "augmentPlotfile", "varfieldAverage",
@@ -118,6 +120,35 @@ def test_cli_help_runs_without_jax():
               "plotTransportCoeff", "plotTYtoLe", "plotQPD", "sCO2",
               "buildPMF"):
         assert t in tools
+
+
+def test_pipeline_runs_without_jax(tmp_path):
+    """A pipeline (grad, then an isosurface kept in memory with write=0,
+    then stream seeded from it) through the port's CLI in a child
+    interpreter that refuses JAX; its files read back."""
+    res = _run("import os, sys\n"
+               "from peleanalysis_tpu_torch import cli\n"
+               "from peleanalysis_tpu_torch.io.plotfile import "
+               "PlotfileReader\n"
+               "from peleanalysis_tpu_torch.testing import "
+               "write_synthetic_plotfile\n"
+               "os.chdir(sys.argv[1])\n"
+               "write_synthetic_plotfile('plt', n_cell=16, n_levels=2, "
+               "max_grid_size=8)\n"
+               "d = 'device=cpu'\n"
+               "assert cli.main(['pipeline', 'grad', 'infile=plt', "
+               "'outfile=g', d, '--', 'isosurface', 'infile=plt', "
+               "'outfile_base=s', 'write=0', d, '--', 'stream', "
+               "'plotfile=plt', 'isoFile=s.mef', 'nRKsteps=5', "
+               "'outFile=l.dat', d]) == 0\n"
+               "assert not os.path.exists('s.mef')\n"
+               "assert PlotfileReader('g').var_names[-1] == '||gradtemp||'\n"
+               "assert open('l.dat').readline().startswith('VARIABLES')\n"
+               "assert cli.main(['--help']) == 0\n",
+               str(tmp_path))
+    assert res.returncode == 0, res.stderr
+    assert "wrote g" in res.stdout and "wrote l.dat" in res.stdout
+    assert "pipeline serve send" in res.stdout
 
 
 def test_isosurface_cli_runs_without_jax(tmp_path):

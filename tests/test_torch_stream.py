@@ -451,7 +451,14 @@ def test_default_packing_follows_march_dtype(plotfiles):
 
 
 def test_defer_raises(plotfiles):
+    """defer=True is ported: finish() equals the eager lines bitwise, and a
+    second finish() raises, as the JAX DeferredLines does."""
     _, pds = _states(plotfiles[2], np.float64)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        trace_streamlines(pds, _seeds(4), 11, 0.5, trace_field="progress",
-                          defer=True)
+    kw = dict(n_rk_steps=11, h_rk=0.5, trace_field="progress")
+    deferred = trace_streamlines(pds, _seeds(4), defer=True, **kw)
+    lines, extras = deferred.finish()
+    np.testing.assert_array_equal(lines,
+                                  trace_streamlines(pds, _seeds(4), **kw))
+    assert extras == []
+    with pytest.raises(RuntimeError, match="already consumed"):
+        deferred.finish()
