@@ -36,6 +36,21 @@ def _np_dtype(dtype: torch.dtype) -> np.dtype:
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def covered_mask_over(meta: AmrMeta, lev: int, box: Box) -> np.ndarray:
+    """bool over ``box`` (level-lev index space): the cell is covered by the
+    next finer level or a periodic image of it."""
+    out = np.zeros(box.shape, dtype=bool)
+    if lev + 1 < meta.n_levels:
+        geom = meta.geoms[lev]
+        shifts = _periodic_shifts(geom.is_periodic, geom.domain)
+        for fb in meta.bas[lev + 1].coarsen(meta.ref_ratio[lev]):
+            for sh in shifts:
+                isect = box.intersect(fb.shift(sh))
+                if not isect.is_empty():
+                    out[_box_slices(isect, box)] = True
+    return out
+
+
 def _box_slices(b: Box, bbox: Box):
     return tuple(slice(b.lo[d] - bbox.lo[d], b.hi[d] - bbox.lo[d] + 1)
                  for d in range(3))
@@ -179,19 +194,8 @@ class DenseAmrState:
     def covered_mask_np(self, lev: int) -> np.ndarray:
         """bool: cell covered by the NEXT finer level (+periodic images)."""
         if self._covered_np[lev] is None:
-            meta = self.meta
-            bbox = self.lmeta[lev].bbox
-            out = np.zeros(bbox.shape, dtype=bool)
-            if lev + 1 < meta.n_levels:
-                fine_c = meta.bas[lev + 1].coarsen(meta.ref_ratio[lev])
-                shifts = _periodic_shifts(meta.geoms[lev].is_periodic,
-                                          meta.geoms[lev].domain)
-                for fb in fine_c:
-                    for sh in shifts:
-                        isect = bbox.intersect(fb.shift(sh))
-                        if not isect.is_empty():
-                            out[_box_slices(isect, bbox)] = True
-            self._covered_np[lev] = out
+            self._covered_np[lev] = covered_mask_over(self.meta, lev,
+                                                      self.lmeta[lev].bbox)
         return self._covered_np[lev]
 
     def valid_mask_np(self, lev: int) -> np.ndarray:

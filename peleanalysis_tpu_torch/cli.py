@@ -28,7 +28,11 @@ post-processing tools ``stream2plt``, ``streamScatter``, ``streamSub``,
 
 Extra keys: ``device=cuda|cpu`` (default ``cuda``; ``cpu`` runs the
 kernels' plain PyTorch versions; ``doctor`` takes none and reports what is
-there) and the global ``dtype=float32|float64``.  ``PELE_PROFILE=<dir>``
+there) and the global ``dtype=float32|float64``.  ``ndevices=N`` spreads
+grad, curvature, isosurface and partStream over N shards in this one
+process (``parallel/``): round robin over the cards, all N on the CPU with
+``device=cpu``; the other tools ignore it, as the JAX tools do.
+``PELE_PROFILE=<dir>``
 in the environment wraps each tool in ``torch.profiler`` and writes a
 Chrome trace into ``<dir>``.
 """

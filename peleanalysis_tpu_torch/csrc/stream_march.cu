@@ -21,6 +21,14 @@
 //   out   : [n_steps + 1, N, 3] in T, row 0 = the seeds
 //   alive : [N] uint8, 0 once a stage's stencil left the volume
 //
+// The field may be a window of the volume: it holds the cells o0..
+// o0+LX-1 (and so on) of an [SX, SY, SZ] volume, C order over
+// [LX, LY, LZ, C].  Every coordinate, bound and clamp is the whole
+// volume's, so a line computes exactly what it computes in the whole
+// volume, as long as its stencils stay in the window (the caller's halo);
+// only the address of a cell moves.  The migrating march of partStream
+// (parallel/particles.py) steps each block's lines this way.
+//
 // Per stage, as in _trace_level: xc = (x - plo)/dx - 0.5, b = floor(xc);
 // ok = every b in [0, S-2]; b is clamped before the gather (a line frozen
 // outside the volume never reads out of bounds); t = clamp(xc - b, 0, 1);
@@ -266,12 +274,16 @@ march_kernel(Volume<FieldT, T> vol, const T* __restrict__ seeds,
 template <typename FieldT, typename T>
 int launch(const void* field, const void* seeds, const void* dirs,
            const void* order, void* out, void* alive, int64_t N,
-           int64_t n_steps, int64_t SX, int64_t SY, int64_t SZ, double plo0,
+           int64_t n_steps, int64_t SX, int64_t SY, int64_t SZ, int64_t LY,
+           int64_t LZ, int64_t o0, int64_t o1, int64_t o2, double plo0,
            double plo1, double plo2, double dx0, double dx1, double dx2,
            double h, void* stream) {
   constexpr int C = Layout<FieldT>::C;
+  // the window's strides; the base moves back by the window's origin, so
+  // that the volume's cell (b0, b1, b2) lands on the window's
+  const int64_t sx = LY * LZ * C, sy = LZ * C;
   const Volume<FieldT, T> vol{
-      (const FieldT*)field, (int)(SY * SZ * C), (int)(SZ * C),
+      (const FieldT*)field - (o0 * sx + o1 * sy + o2 * C), (int)sx, (int)sy,
       make_grid<T>(SX, SY, SZ, plo0, plo1, plo2, dx0, dx1, dx2)};
   const unsigned blocks = (unsigned)((N + kThreads - 1) / kThreads);
   march_kernel<FieldT, T><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
@@ -343,17 +355,20 @@ int report(int* out) {
 
 // Plain C entry points for ctypes, one per (field type, state type), and
 // NAME_report for its registers and occupancy; stream_march_key_f64 for the
-// order key of double positions.  Each returns a cudaError_t
-// (0 = cudaSuccess).
+// order key of double positions.  The field holds the cells o0.. of an
+// [SX, SY, SZ] volume with y and z extents LY, LZ: the whole volume is
+// LY = SY, LZ = SZ, o = 0.  Each returns a cudaError_t (0 = cudaSuccess).
 #define STREAM_MARCH_ENTRY(NAME, FIELD_T, T)                                  \
-  extern "C" int NAME(const void* field, const void* seeds, const void* dirs, \
-                      const void* order, void* out, void* alive, int64_t N,   \
-                      int64_t n_steps, int64_t SX, int64_t SY, int64_t SZ,    \
-                      double plo0, double plo1, double plo2, double dx0,      \
-                      double dx1, double dx2, double h, void* stream) {       \
+  extern "C" int NAME(                                                        \
+      const void* field, const void* seeds, const void* dirs,                 \
+      const void* order, void* out, void* alive, int64_t N, int64_t n_steps,  \
+      int64_t SX, int64_t SY, int64_t SZ, int64_t LY, int64_t LZ,             \
+      int64_t o0, int64_t o1, int64_t o2, double plo0, double plo1,           \
+      double plo2, double dx0, double dx1, double dx2, double h,              \
+      void* stream) {                                                         \
     return launch<FIELD_T, T>(field, seeds, dirs, order, out, alive, N,       \
-                              n_steps, SX, SY, SZ, plo0, plo1, plo2, dx0,     \
-                              dx1, dx2, h, stream);                           \
+                              n_steps, SX, SY, SZ, LY, LZ, o0, o1, o2, plo0,  \
+                              plo1, plo2, dx0, dx1, dx2, h, stream);          \
   }                                                                           \
   extern "C" int NAME##_report(int* out) { return report<FIELD_T, T>(out); }
 

@@ -45,12 +45,13 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..amr.cluster import cluster_substates, coarse_only_state
+from ..amr.cluster import coarse_only_state
 from ..amr.dense import DenseAmrState
 from ..amr.hierarchy import _periodic_shifts
 from ..io.mef import MEF
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import default_bc
+from ..parallel.cluster_shard import sharded_substates
 from .mc_tables import CORNER_OFFSETS, CORNER_PAIRS, EDGE_TABLE, TRI_TABLE
 
 _LEV_SHIFT = 54
@@ -96,29 +97,41 @@ def _cached(dstate: DenseAmrState, key, build):
     return cache[key]
 
 
-def _coord_level(dstate: DenseAmrState, lev: int) -> torch.Tensor:
+def _coord_level(dstate: DenseAmrState, lev: int, win=None) -> torch.Tensor:
     """Level ``lev``'s ``[3, *bbox]`` cell-centre coordinates on the state's
     device: float64 on the host per axis, rounded to the state dtype, then
-    broadcast."""
+    broadcast.  A shard window (``win``) takes the global geometry, and a
+    periodic image cell the coordinate of the cell it images, as the global
+    fill gives it before the unwrap."""
     geom = dstate.meta.geoms[lev]
     bbox = dstate.lmeta[lev].bbox
+    idx = [np.arange(bbox.lo[d], bbox.hi[d] + 1) for d in range(3)]
+    if win is not None:
+        geom = win.geoms[lev]
+        idx = [win.wrap(lev, d, idx[d]) for d in range(3)]
     axes = [torch.from_numpy(
-        geom.prob_lo[d] + (np.arange(bbox.lo[d], bbox.hi[d] + 1)
-                           - geom.domain.lo[d] + 0.5) * geom.dx[d])
+        geom.prob_lo[d] + (idx[d] - geom.domain.lo[d] + 0.5) * geom.dx[d])
             .to(dstate.device, dstate.dtype) for d in range(3)]
     return torch.stack(torch.meshgrid(*axes, indexing="ij"))
 
 
-def _data_level(dstate: DenseAmrState, comps, lev: int) -> torch.Tensor:
+def _data_level(dstate: DenseAmrState, comps, lev: int,
+                win=None) -> torch.Tensor:
     """``[coords | selected comps]`` of one level, ``[3 + nc, *bbox]``,
     concatenated once per (state, comps, level)."""
     return _cached(dstate, ("data", tuple(comps), lev), lambda: torch.cat(
-        [_coord_level(dstate, lev), dstate.data[lev][list(comps)]]))
+        [_coord_level(dstate, lev, win), dstate.data[lev][list(comps)]]))
 
 
-def _grown_masks(dstate: DenseAmrState, lev: int):
-    """Host masks on the grown bbox: (covered_by_finer, in_level_padded)."""
+def _grown_masks(dstate: DenseAmrState, lev: int, win=None):
+    """Host masks on the grown bbox: (covered_by_finer, in_level_padded).
+    A shard window's (``win``) are the global run's: the global covered
+    mask, and no in-level cell outside the global domain (its unrolled
+    periodic images are the global run's grown ring)."""
     def build():
+        if win is not None:
+            return win.covered_ring[lev], np.pad(
+                dstate.in_level_mask_np(lev) & win.in_domain[lev], 1)
         meta = dstate.meta
         gbox = dstate.lmeta[lev].bbox.grow(1)
         cov = np.zeros(gbox.shape, dtype=bool)
@@ -164,22 +177,23 @@ def _corner_keys_at(dstate: DenseAmrState, lev: int, inlev_p: np.ndarray,
     return np.where(inlev_p[ii, jj, kk], fine_key, crse_key)
 
 
-def _ok_mask(dstate: DenseAmrState, lev: int) -> torch.Tensor:
+def _ok_mask(dstate: DenseAmrState, lev: int, win=None) -> torch.Tensor:
     """Iso-independent mask of the dual cells that may emit, on the device:
     no covered corner, at least one corner in the level, inside the
-    (periodically grown) domain."""
+    (periodically grown) domain; in a shard window (``win``) also owned by
+    the shard."""
     def build():
         geom = dstate.meta.geoms[lev]
         dom = geom.domain
         gbox = dstate.lmeta[lev].bbox.grow(1)
-        cov, inlev_p = _grown_masks(dstate, lev)
+        cov, inlev_p = _grown_masks(dstate, lev, win)
         shp = tuple(s - 1 for s in cov.shape)
         ok = np.ones(shp, dtype=bool)
         touch = np.zeros(shp, dtype=bool)
         for o in CORNER_OFFSETS:
-            win = tuple(slice(o[d], cov.shape[d] - 1 + o[d]) for d in range(3))
-            ok &= ~cov[win]
-            touch |= inlev_p[win]
+            sl = tuple(slice(o[d], cov.shape[d] - 1 + o[d]) for d in range(3))
+            ok &= ~cov[sl]
+            touch |= inlev_p[sl]
         for d in range(3):
             base = np.arange(gbox.lo[d], gbox.hi[d])
             per = geom.is_periodic[d]
@@ -188,13 +202,16 @@ def _ok_mask(dstate: DenseAmrState, lev: int) -> torch.Tensor:
             sh = [1, 1, 1]
             sh[d] = -1
             ok &= (lo_ok & hi_ok).reshape(sh)
+            if win is not None:
+                own_lo, own_hi = win.duals[lev]
+                ok &= ((base >= own_lo[d]) & (base <= own_hi[d])).reshape(sh)
         return torch.from_numpy(ok & touch).to(dstate.device)
     return _cached(dstate, ("ok", lev), build)
 
 
-def _inlev_dev(dstate: DenseAmrState, lev: int) -> torch.Tensor:
+def _inlev_dev(dstate: DenseAmrState, lev: int, win=None) -> torch.Tensor:
     return _cached(dstate, ("inlev", lev), lambda: torch.from_numpy(
-        _grown_masks(dstate, lev)[1]).to(dstate.device))
+        _grown_masks(dstate, lev, win)[1]).to(dstate.device))
 
 
 def _unwraps(dstate: DenseAmrState, lev: int):
@@ -347,15 +364,52 @@ def _node_keys(lev: int, a: int, cA, gbox_lo) -> torch.Tensor:
     """Global keys of nodes at grown-local lower cells cA on axis a:
     ``lev<<59 | a<<57 | i<<38 | j<<19 | k``, i, j, k the global cell + 1 (the
     JAX engine's ``_decode_packed`` keys)."""
-    i, j, k = (cA[d] + (gbox_lo[d] + 1) for d in range(3))
+    return _pack_keys(lev, a, [cA[d] + gbox_lo[d] for d in range(3)])
+
+
+def _pack_keys(lev: int, a: int, pos) -> torch.Tensor:
+    i, j, k = (p + 1 for p in pos)
     return (i << 38) | (j << 19) | k | ((lev << 59) | (a << 57))
+
+
+def _canonical(win, lev: int, pos):
+    """Global lower cells ``pos`` of a shard window's level-lev nodes,
+    moved where the global run keeps them: along a periodic dim the global
+    level spans, its seam folds (``_fold_edge_mask``) take the image slots
+    -1 and N to N-1 and 0."""
+    out = []
+    for d in range(3):
+        p = pos[d]
+        if win.spans[lev][d]:
+            dom = win.geoms[lev].domain
+            p = torch.remainder(p - dom.lo[d], dom.shape[d]) + dom.lo[d]
+        out.append(p)
+    return out
+
+
+def _unwrapped(win, lev: int, pos, row: torch.Tensor) -> torch.Tensor:
+    """``row`` ([nf, n] corner values) with the periodic unwrap of the
+    global run's grown ring (``_unwraps``) added to its coordinates at the
+    global corner positions ``pos``."""
+    geom = win.geoms[lev]
+    for d in range(3):
+        if not geom.is_periodic[d]:
+            continue
+        span = torch.full((), float(geom.prob_hi[d] - geom.prob_lo[d]),
+                          dtype=row.dtype, device=row.device)
+        dv = torch.where(pos[d] < geom.domain.lo[d], -span,
+                         torch.where(pos[d] > geom.domain.hi[d], span,
+                                     torch.zeros_like(span)))
+        row[d] = torch.where(dv != 0, row[d] + dv, row[d])
+    return row
 
 
 def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                             iso_val: float, extra_names: Sequence[str] = (),
                             bc=None, label: Optional[str] = None,
                             emit_levels: Optional[Sequence[int]] = None,
-                            want_eids: bool = False, defer: bool = False):
+                            want_eids: bool = False, defer: bool = False,
+                            window=None):
     """Isosurface of ``iso_name`` at ``iso_val`` over all levels: a MEF with
     names ``X Y Z iso_name extra...`` (nodes in float64, computed in the
     state's dtype) whose node ids and elements are the JAX enum engine's.
@@ -368,7 +422,18 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     each node's global key (``_node_keys``, int64 numpy) for the sparse
     path's merge of runs.  defer=True keeps the result on the device and
     returns a :class:`DeferredSurface` (not with want_eids: the sparse
-    merge needs the keys on the host)."""
+    merge needs the keys on the host).
+
+    ``window`` (a ``WindowInfo``, parallel/dense_shard.py) makes
+    ``dstate`` a shard window: it emits the triangles of the dual cells it
+    owns and returns ``(mef, keys, cells)``: its nodes keyed and valued as
+    the global run keeps them (the seams folded by ``_canonical``, the
+    coordinates unwrapped where the global ring is), and each triangle's
+    dual cell as a key in the global run's order (``_merge_runs``)."""
+    win = window
+    if win is not None and defer:
+        raise ValueError("defer is not supported with a window (the merge "
+                         "of windows needs the keys on the host)")
     if defer and want_eids:
         raise ValueError("defer is not supported with want_eids (the "
                          "sparse merge needs the decoded edge ids)")
@@ -380,19 +445,22 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
         bc = default_bc(3)
     nf = 3 + len(names)
     dev = dstate.device
-    inlevs = [_inlev_dev(dstate, lev) for lev in range(L)]
+    inlevs = [_inlev_dev(dstate, lev, win) for lev in range(L)]
     spans = [_spans(dstate, lev) for lev in range(L)]
     rr = [meta.ref_ratio[lev - 1] if lev > 0 else 1 for lev in range(L)]
     gbox_los = [tuple(dstate.lmeta[lev].bbox.grow(1).lo) for lev in range(L)]
 
     with _stage("fill"):
         comps = [dstate.comp(n) for n in names]
-        data_levels = [_data_level(dstate, comps, lev) for lev in range(L)]
+        data_levels = [_data_level(dstate, comps, lev, win)
+                       for lev in range(L)]
         masks = [dstate.in_level_mask(lev) for lev in range(L)]
         grown = fill_dense_multilevel(meta, dstate.lmeta, data_levels, masks,
                                       1, bc, "pc")
         for lev in range(L):
-            uw = _unwraps(dstate, lev)
+            # a window unwraps at the gather, where it knows each node's
+            # global corner positions
+            uw = _unwraps(dstate, lev) if win is None else None
             if uw:
                 grown[lev] = grown[lev].clone()
                 for d, sl, dv in uw:
@@ -405,7 +473,7 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
             ci = _classify(inside)
             insides[lev] = inside
             cis[lev] = ci
-            acts[lev] = _ok_mask(dstate, lev) & (ci != 0) & (ci != 255)
+            acts[lev] = _ok_mask(dstate, lev, win) & (ci != 0) & (ci != 255)
 
     with _stage("masks"):
         # referenced crossings; refs[lev][a] = [own, class B]
@@ -472,7 +540,7 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
         counts = torch.stack(parts).tolist()              # the one count read
     n_acts = dict(zip(emit, counts[3 * L:]))
 
-    node_rows, node_keys, tri_nids, tri_valid = [], [], [], []
+    node_rows, node_keys, tri_nids, tri_valid, tri_cells = [], [], [], [], []
     tri_edges = _cached(dstate, "tri_edges",
                         lambda: torch.from_numpy(_TRI_EDGES).to(dev))
     for lev in range(L):
@@ -487,11 +555,18 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                        - sum(x.numel() for x in refs[lev][:a]))
             with _stage("gather"):
                 cA = _unravel(loc, m.shape)
-                if want_eids:
-                    node_keys.append(_node_keys(lev, a, cA, gbox_los[lev]))
                 cB = [cA[d] + 1 if d == a else cA[d] for d in range(3)]
                 A = G[:, cA[0], cA[1], cA[2]]                 # [nf, n]
                 B = G[:, cB[0], cB[1], cB[2]]
+                if win is not None:
+                    pA = _canonical(win, lev, [cA[d] + gbox_los[lev][d]
+                                               for d in range(3)])
+                    pB = [pA[d] + 1 if d == a else pA[d] for d in range(3)]
+                    A = _unwrapped(win, lev, pA, A)
+                    B = _unwrapped(win, lev, pB, B)
+                    node_keys.append(_pack_keys(lev, a, pA))
+                elif want_eids:
+                    node_keys.append(_node_keys(lev, a, cA, gbox_los[lev]))
                 fa, fb = A[3], B[3]
                 denom = fb - fa
                 t = torch.where(denom.abs() > 1e-30, (iso_val - fa)
@@ -530,6 +605,11 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
             nid12 = torch.stack(nid, 1)                       # [n, 12]
             tri_e = tri_edges[cis[lev].reshape(-1)[idx].long()]   # [n, 5, 3]
             tri_valid.append(tri_e[..., 0] >= 0)
+            if win is not None:
+                cell = _pack_keys(lev, 0, [c.long() + gbox_los[lev][d]
+                                           for d, c in enumerate(
+                                               (ai, aj, ak))])
+                tri_cells.append(cell[:, None].expand(-1, 5))
             tri_nids.append(torch.gather(
                 nid12, 1, tri_e.clamp(min=0).reshape(-1, 15).long()
             ).reshape(-1, 5, 3))
@@ -541,6 +621,8 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     if sum(counts[3 * lev + 2] for lev in range(L)) == 0:
         mef = MEF(label or "0", out_names, np.zeros((0, nf)),
                   np.zeros((0, 3), np.int32))
+        if win is not None:
+            return mef, np.zeros(0, np.int64), np.zeros(0, np.int64)
         return (mef, np.zeros(0, np.int64)) if want_eids else mef
     if defer:
         return DeferredSurface(label or "0", out_names, torch.cat(node_rows),
@@ -551,9 +633,14 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
     with _stage("copy"):
         nodes = torch.cat(node_rows).cpu().numpy()
         elements = elements.cpu().numpy()
-        keys = torch.cat(node_keys).cpu().numpy() if want_eids else None
+        keys = torch.cat(node_keys).cpu().numpy() if node_keys else None
+        if win is not None:
+            cells = (torch.cat(tri_cells)[torch.cat(tri_valid)].cpu().numpy()
+                     if tri_cells else np.zeros(0, np.int64))
     mef = MEF(label or "0", out_names, nodes.astype(np.float64),
               elements.astype(np.int32))
+    if win is not None:
+        return mef, keys, cells
     return (mef, keys) if want_eids else mef
 
 
@@ -624,7 +711,8 @@ def _share_coarse_inputs(dst: DenseAmrState, base: DenseAmrState, comps,
 def extract_isosurface_sparse(base: DenseAmrState, fin_fabs, iso_name: str,
                               iso_val: float,
                               extra_names: Sequence[str] = (), bc=None,
-                              label: Optional[str] = None) -> MEF:
+                              label: Optional[str] = None,
+                              mesh=None) -> MEF:
     """Sparse refinement extraction (JAX :1753-1892): the finest level is
     processed as dense CLUSTERS (amr/cluster.py), so device memory scales
     with the coarse levels plus one cluster bbox instead of the finest
@@ -636,11 +724,14 @@ def extract_isosurface_sparse(base: DenseAmrState, fin_fabs, iso_name: str,
     triangles.  Nodes are identified across runs by their global keys
     (``_node_keys``): ``np.unique`` orders them as the JAX merge does, a
     later run overwriting an earlier one's row for a repeated key, so the
-    elements equal JAX's."""
+    elements equal JAX's.  ``mesh``: the clusters dealt over its shards,
+    each over the copy of ``base`` on its device
+    (``parallel/cluster_shard.py``)."""
     fin = base.meta.n_levels - 1
     names = [iso_name] + [n for n in extra_names if n != iso_name]
     comps = [base.comp(n) for n in names]
-    _, subs = cluster_substates(base, fin_fabs)
+    _, subs = sharded_substates(base, fin_fabs, mesh)
+    bases = getattr(subs, "bases", {base.device: base})
     coarse = coarse_only_state(base)
     _share_coarse_inputs(coarse, base, comps, range(fin))
     results = [extract_isosurface_enum(coarse, iso_name, iso_val,
@@ -648,7 +739,7 @@ def extract_isosurface_sparse(base: DenseAmrState, fin_fabs, iso_name: str,
                                        want_eids=True)]
     del coarse
     for sub in subs:
-        _share_coarse_inputs(sub, base, comps, range(fin))
+        _share_coarse_inputs(sub, bases[sub.device], comps, range(fin))
         results.append(extract_isosurface_enum(
             sub, iso_name, iso_val, extra_names, bc, label,
             emit_levels=(fin,), want_eids=True))
@@ -656,11 +747,15 @@ def extract_isosurface_sparse(base: DenseAmrState, fin_fabs, iso_name: str,
     return _merge_runs(results, label)
 
 
-def _merge_runs(results, label: Optional[str] = None) -> MEF:
+def _merge_runs(results, label: Optional[str] = None,
+                cells=None) -> MEF:
     """One MEF from ``(mef, keys)`` runs: nodes ordered by key
     (``np.unique``), a later run's row overwriting an earlier one's for a
-    repeated key, each run's elements renumbered."""
-    uniq, inv = np.unique(np.concatenate([k for _, k in results]),
+    repeated key, each run's elements renumbered.  With ``cells`` (the
+    runs of shard windows: each run's triangles' dual-cell keys), the
+    triangles go in the order of their dual cells' keys (a stable sort
+    keeps a cell's in the case table's order): the global run's order."""
+    uniq, inv = np.unique(np.concatenate([r[1] for r in results]),
                           return_inverse=True)
     nodes = np.zeros((len(uniq), results[0][0].nodes.shape[1]))
     elements, off = [], 0
@@ -669,8 +764,39 @@ def _merge_runs(results, label: Optional[str] = None) -> MEF:
         nodes[gid] = mef.nodes
         elements.append(gid[mef.elements])
         off += len(keys)
-    return MEF(label or "0", results[0][0].names, nodes,
-               np.concatenate(elements).astype(np.int32))
+    elements = np.concatenate(elements).astype(np.int32)
+    if cells is not None:
+        elements = elements[np.argsort(np.concatenate(cells),
+                                       kind="stable")]
+    return MEF(label or "0", results[0][0].names, nodes, elements)
+
+
+def extract_isosurface_windows(windows, iso_name: str, iso_val: float,
+                               extra_names: Sequence[str] = (), bc=None,
+                               label: Optional[str] = None) -> MEF:
+    """The isosurface over a hierarchy cut into shard windows
+    (``parallel/dense_shard.py`` ``ShardedDenseState`` with
+    ``ISO_HALO``): each window, built on its shard's device when visited,
+    emits the triangles of the dual cells its shard owns; the runs merge
+    by global node key and dual-cell order into the unsharded run's MEF."""
+    results, cells = [], []
+    for s, win in windows:
+        mef, keys, cell = extract_isosurface_enum(
+            win, iso_name, iso_val, extra_names, bc, label,
+            window=windows.window_info(s))
+        results.append((mef, keys))
+        cells.append(cell)
+        del win
+    return _merge_runs(results, label, cells)
+
+
+def check_engine(classify: str) -> None:
+    """Refuse an engine other than enum, the only one ported."""
+    if classify != "enum":
+        raise NotImplementedError(
+            f"engine={classify}: only the enum engine is ported; the device, "
+            "fused and numpy engines are not to be ported (ROADMAP.md Queue 1 "
+            "item 2)")
 
 
 def extract_isosurface(dstate: DenseAmrState, iso_name: str, iso_val: float,
@@ -680,11 +806,7 @@ def extract_isosurface(dstate: DenseAmrState, iso_name: str, iso_val: float,
     """Marching-cubes isosurface over all levels -> MEF, through the enum
     engine (the only engine ported); defer=True returns a
     :class:`DeferredSurface`."""
-    if classify != "enum":
-        raise NotImplementedError(
-            f"engine={classify}: only the enum engine is ported; the device, "
-            "fused and numpy engines are not to be ported (ROADMAP.md Queue 1 "
-            "item 2)")
+    check_engine(classify)
     return extract_isosurface_enum(dstate, iso_name, iso_val, extra_names,
                                    bc, label, defer=defer)
 

@@ -206,13 +206,18 @@ def _merge_fine_level(data: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask_p[None], fine_p, up)
 
 
+def interp_stencil(interp: str) -> int:
+    """Coarse cells an upsample reads beyond a fine cell's parent, each
+    way: one for linear and quadratic, none for pc."""
+    return 1 if interp in ("linear", "quadratic") else 0
+
+
 def _coarse_window(meta, lmeta, lev: int, ngrow: int, interp: str):
     """(gbox, cbox): the level's grown box and the coarse cells its
-    upsample reads (one spare cell per side for linear/quadratic)."""
+    upsample reads (``interp_stencil`` spare cells per side)."""
     r = meta.ref_ratio[lev - 1]
-    stencil = 1 if interp in ("linear", "quadratic") else 0
     gbox = lmeta[lev].bbox.grow(ngrow)
-    return gbox, gbox.coarsen(r).grow(stencil)
+    return gbox, gbox.coarsen(r).grow(interp_stencil(interp))
 
 
 def _upsampled(crse_grown: torch.Tensor, cg_box: Box, cbox: Box, gbox: Box,

@@ -25,7 +25,12 @@ kernel reads line ``order[i]`` and writes it at its own index, so the
 result does not depend on the order.
 
 ``march`` sends a CPU tensor to ``march_torch`` and a CUDA tensor to the
-kernel.  Nothing falls back: a failed build or launch raises.
+kernel.  Nothing falls back: a failed build or launch raises.  Given
+``origin=`` and ``shape=``, ``march`` marches over a window of a larger
+volume (the migrating march of partStream, ``parallel/particles.py``):
+every coordinate and bound is the whole volume's, so a line whose stencils
+stay in the window computes what it computes in the whole volume, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -88,17 +93,22 @@ def _const(x: float, like: torch.Tensor) -> torch.Tensor:
 
 def march_torch(field: torch.Tensor, plo: Sequence[float],
                 dx: Sequence[float], h: float, seeds: torch.Tensor,
-                n_steps: int, dirs: torch.Tensor
+                n_steps: int, dirs: torch.Tensor,
+                origin: Sequence[int] = (0, 0, 0),
+                shape: Optional[Sequence[int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version, vectorised over lines with a Python loop over steps:
     ``(pos [n_steps+1, N, 3], alive [N])`` in ``seeds``' dtype.  The
-    operations and their order are the kernel's."""
+    operations and their order are the kernel's.  ``field`` may be a window
+    at ``origin`` of a volume of ``shape`` cells (``march``)."""
     dt, dev = seeds.dtype, seeds.device
-    SX, SY, SZ, _ = field.shape
+    LX, SY, SZ, _ = field.shape
+    SX, GY, GZ = shape if shape is not None else (LX, SY, SZ)
     flat = field.reshape(-1, field.shape[3])[:, :3]
     plo_t = torch.tensor([float(v) for v in plo], dtype=dt, device=dev)
     dx_t = torch.tensor([float(v) for v in dx], dtype=dt, device=dev)
-    hi = torch.tensor([SX - 2, SY - 2, SZ - 2], dtype=dt, device=dev)
+    hi = torch.tensor([SX - 2, GY - 2, GZ - 2], dtype=dt, device=dev)
+    org = torch.tensor([int(v) for v in origin], device=dev)
     corner = torch.tensor([(o[0] * SY + o[1]) * SZ + o[2]
                            for o in CORNER_OFFSETS_S], device=dev)
     tiny = _const(torch.finfo(dt).tiny, seeds)
@@ -111,7 +121,7 @@ def march_torch(field: torch.Tensor, plo: Sequence[float],
         ok = ((b >= 0) & (b <= hi)).all(dim=1)
         b = torch.minimum(torch.clamp(b, min=0), hi)   # clamp before gather
         t = torch.clamp(xc - b, 0.0, 1.0)
-        bi = b.long()
+        bi = b.long() - org
         base = (bi[:, 0] * SY + bi[:, 1]) * SZ + bi[:, 2]
         c = flat[base[:, None] + corner[None, :]].to(dt)        # [N, 8, 3]
         w1 = [[1 - t[:, d], t[:, d]] for d in range(3)]
@@ -142,19 +152,41 @@ def march_torch(field: torch.Tensor, plo: Sequence[float],
 
 
 def march(field: torch.Tensor, plo: Sequence[float], dx: Sequence[float],
-          h: float, seeds: torch.Tensor, n_steps: int, dirs: torch.Tensor
+          h: float, seeds: torch.Tensor, n_steps: int, dirs: torch.Tensor,
+          origin: Sequence[int] = (0, 0, 0),
+          shape: Optional[Sequence[int]] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dispatcher: a CPU tensor takes ``march_torch``, a CUDA tensor the
     kernel.  seeds ``[N, 3]`` and dirs ``[N]`` (+-1) in the position dtype,
     float64 or float32; field ``[SX, SY, SZ, C]`` (``prepare_field``) in
     that dtype, float32 under float64 positions, or bfloat16.  Returns
-    ``(pos [n_steps+1, N, 3], alive [N] bool)``."""
+    ``(pos [n_steps+1, N, 3], alive [N] bool)``.
+
+    With ``shape``, ``field`` is a window of a volume of ``shape`` cells
+    whose lower corner is at ``plo``: it holds the cells ``origin`` ..
+    ``origin + L - 1``.  Each line's stencils must stay in the window while
+    it is alive (the caller's halo); a line frozen outside the volume is
+    clamped into it, so the window must reach the volume's edge wherever a
+    line can leave it."""
     _check(field, plo, dx, seeds, n_steps, dirs)
+    origin = tuple(int(v) for v in origin)
+    shape = tuple(int(v) for v in (shape or field.shape[:3]))
+    for d in range(3):
+        if not (0 <= origin[d] and origin[d] + field.shape[d] <= shape[d]):
+            raise ValueError(f"window at {origin} of {tuple(field.shape[:3])}"
+                             f" cells is not inside the volume {shape}")
     if seeds.device.type == "cpu":
-        return march_torch(field, plo, dx, h, seeds, n_steps, dirs)
+        return march_torch(field, plo, dx, h, seeds, n_steps, dirs, origin,
+                           shape)
     if seeds.device.type != "cuda":
         raise ValueError(f"march runs on cpu or cuda, not {seeds.device}")
-    return _launch(field, plo, dx, h, seeds, n_steps, dirs)
+    LY, LZ, C = field.shape[1:]
+    if ((shape[0] - 1) * LY * LZ + (shape[1] - 1) * LZ + shape[2]) * C \
+            >= 2 ** 31:
+        raise ValueError(f"a window of a volume of {shape} cells: the "
+                         "kernel's 32-bit offsets take fewer than 2**31 "
+                         "elements")
+    return _launch(field, plo, dx, h, seeds, n_steps, dirs, shape, origin)
 
 
 def _check(field, plo, dx, seeds, n_steps, dirs) -> None:
@@ -187,7 +219,7 @@ def _check(field, plo, dx, seeds, n_steps, dirs) -> None:
         raise ValueError("plo and dx need 3 entries and n_steps >= 0")
 
 
-def _launch(field, plo, dx, h, seeds, n_steps, dirs):
+def _launch(field, plo, dx, h, seeds, n_steps, dirs, shape, origin):
     global LAUNCHES
     N = seeds.shape[0]
     out = torch.empty((n_steps + 1, N, 3), dtype=seeds.dtype,
@@ -196,17 +228,16 @@ def _launch(field, plo, dx, h, seeds, n_steps, dirs):
     if N == 0:
         return out, alive
     fn = getattr(load_library(), _ENTRY[(field.dtype, seeds.dtype)])
-    SX, SY, SZ, _ = field.shape
     order = None
     if (field.dtype, seeds.dtype) in ORDERED:
         # the kernel reads line order[i] and writes it at its own index
-        order = torch.argsort(order_key(field.shape[:3], plo, dx, seeds,
-                                        dirs))
+        order = torch.argsort(order_key(shape, plo, dx, seeds, dirs))
     with torch.cuda.device(seeds.device):
         stream = torch.cuda.current_stream(seeds.device).cuda_stream
         err = fn(field.data_ptr(), seeds.data_ptr(), dirs.data_ptr(),
                  None if order is None else order.data_ptr(),
-                 out.data_ptr(), alive.data_ptr(), N, n_steps, SX, SY, SZ,
+                 out.data_ptr(), alive.data_ptr(), N, n_steps, *shape,
+                 field.shape[1], field.shape[2], *origin,
                  *(float(v) for v in plo), *(float(v) for v in dx),
                  float(h), stream)
     if err != 0:
@@ -293,7 +324,7 @@ def build(verbose: bool = False):
 def load_library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        sig = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 5
+        sig = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 10
                + [ctypes.c_double] * 7 + [ctypes.c_void_p])
         key_sig = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 4
                    + [ctypes.c_double] * 6 + [ctypes.c_int, ctypes.c_void_p])

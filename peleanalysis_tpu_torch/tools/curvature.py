@@ -36,6 +36,13 @@ clustered path (JAX ``_main_clustered``, :494-589): the progress bounds are
 scanned globally, then one coarse pass writes levels 0..fin-1 and each
 cluster's run, over every level, its finest boxes.  ``do_smooth=1`` needs
 the composite solve over the whole hierarchy and keeps the dense path.
+
+``ndevices=N``: the dense path runs the chain on N deep-halo windows (two
+fill-and-stencil stages deep: ``parallel/dense_shard.py``) after one global
+progress min/max scan of the host FABs; the clustered path deals its
+clusters over N shards.  ``do_smooth=1`` with ``ndevices>1`` is refused:
+the composite solve is elliptic, so no finite halo makes a window exact
+(ROADMAP.md Queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -46,16 +53,20 @@ import torch
 
 from .. import config
 from ..amr.cluster import clustered
-from ..amr.dense import DenseAmrState, _np_dtype
+from ..amr.dense import DenseAmrState, _np_dtype, covered_mask_over
 from ..ops.dense_fill import fill_dense_arrays, fill_dense_multilevel
 from ..ops.grad_kernels import grad_mag
 from ..ops.restrict import average_down_all
 from ..ops.solve import cg_solve, cg_solve_composite
 from ..ops.stencil import laplacian
+from ..parallel.cluster_shard import cluster_mesh
+from ..parallel.dense_shard import (CURVATURE_STAGES, ShardedDenseState,
+                                    mesh_from_pp, refuse_unsharded,
+                                    stencil_halo)
 from ..parmparse import ParmParse
 from ..session import (dense_state, get_session, load_state,
                        stage_write_plotfile, var_names)
-from .grad import grad_bc, refuse_unported, write_clustered
+from .grad import grad_bc, refuse_unported, write_clustered, write_sharded
 
 D = 3
 
@@ -334,6 +345,7 @@ def main(args: dict) -> None:
     [do_velnormal=0] [threshold_prog=0] [threshold=1e-4]
     [replicate_strain_bug=0] [is_per=0 0 0] [sym_dir=0 0 0]
     [cf_interp=quadratic] [finestLevel=] [force_dense=0] [cluster_batch=0]
+    [ndevices=1 [mesh_shape=a b [c]]  (not with do_smooth=1)]
     [outfile=...] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
@@ -359,6 +371,9 @@ def main(args: dict) -> None:
     device = config.get_device(pp.query_str("device", "cuda"))
     refuse_unported(pp)
     do_smooth = pp.query_bool("do_smooth", False)
+    ndev = pp.query_int("ndevices", 1)
+    if do_smooth and ndev > 1:
+        refuse_unsharded("do_smooth=1")
     kwargs = dict(
         prog_min=pp.query_float("progMin", None),
         prog_max=pp.query_float("progMax", None),
@@ -396,8 +411,15 @@ def main(args: dict) -> None:
     elif sparse:
         print("curvature: sparse refinement detected -> clustered path")
         n = curvature_clustered(meta, src.names, src.fabs, device,
-                                progress_name, aux_names, outfile, **kw)
+                                progress_name, aux_names, outfile,
+                                mesh=cluster_mesh(ndev, device) if ndev > 1
+                                else None, **kw)
         print(f"wrote {outfile} ({n} clusters)")
+        return
+    if ndev > 1:
+        if curvature_sharded(args, src, mesh_from_pp(pp, ndev, device),
+                             progress_name, aux_names, outfile, **kw):
+            print(f"wrote {outfile} ({ndev} shards)")
         return
     dstate = dense_state(args, src, device, config.compute_dtype)
     out = _with_aux(compute_curvature_dense(dstate, progress_name, **kw),
@@ -421,17 +443,51 @@ def _with_aux(out: DenseAmrState, src: DenseAmrState, aux_names, levels
     return out.with_data(out.names + list(aux_names), data)
 
 
-def _host_minmax(fabs, ic: int, dtype: torch.dtype):
-    """(min, max) of component ic over every cell of a level's boxes, as
-    ``_file_minmax`` gives them for a level with no finer level (rounding
-    to ``dtype`` commutes with min and max)."""
-    np_dt = _np_dtype(dtype)
-    return (float(np_dt.type(np.min([f[ic].min() for f in fabs]))),
-            float(np_dt.type(np.max([f[ic].max() for f in fabs]))))
+def _global_bounds(kw: dict, meta, fabs, ic: int) -> None:
+    """Set ``kw``'s progress bounds for a run in parts (windows or
+    clusters), which must all normalise alike: with use_file_minmax or a
+    bound missing, the min and max of component ic over the valid cells
+    (not covered by the next finer level or its periodic images) of every
+    level, from the host FABs, widening any bound given, as
+    ``compute_curvature_dense`` scans a whole dense state of the compute
+    dtype (rounding to it commutes with min and max); then
+    ``use_file_minmax=False`` for every part."""
+    if (kw["use_file_minmax"] or kw["prog_min"] is None
+            or kw["prog_max"] is None):
+        los, his = [], []
+        for lev in range(meta.n_levels):
+            for b, fab in zip(meta.bas[lev], fabs[lev]):
+                v = fab[ic][~covered_mask_over(meta, lev, b)]
+                if v.size:
+                    los.append(v.min())
+                    his.append(v.max())
+        np_dt = _np_dtype(config.compute_dtype)
+        lo, hi = (float(np_dt.type(f(x))) for f, x in ((np.min, los),
+                                                        (np.max, his)))
+        kw["prog_min"] = lo if kw["prog_min"] is None else min(
+            kw["prog_min"], lo)
+        kw["prog_max"] = hi if kw["prog_max"] is None else max(
+            kw["prog_max"], hi)
+    kw["use_file_minmax"] = False
+
+
+def curvature_sharded(args, src, mesh, progress_name, aux_names, outfile,
+                      **kw) -> bool:
+    """The dense curvature on the windows of ``mesh``: the progress
+    bounds from one global scan, then the chain window by window, its
+    owned cells gathered (``grad.write_sharded``)."""
+    meta = src.meta
+    dt = config.compute_dtype
+    _global_bounds(kw, meta, src.fabs, src.names.index(progress_name))
+    sd = ShardedDenseState(meta, src.names, src.fabs, mesh,
+                           stencil_halo(CURVATURE_STAGES, kw["interp"]), dt)
+    return write_sharded(args, sd, lambda w: _with_aux(
+        compute_curvature_dense(w, progress_name, **kw), w, aux_names,
+        range(w.meta.n_levels)), outfile)
 
 
 def curvature_clustered(meta, names, fabs, device, progress_name, aux_names,
-                        outfile, **kw) -> int:
+                        outfile, mesh=None, **kw) -> int:
     """The clustered curvature (JAX ``_main_clustered``): the GLOBAL
     progress min/max over the coarse levels' valid cells and every finest
     box (a per-cluster scan would normalise each cluster differently), then
@@ -441,23 +497,12 @@ def curvature_clustered(meta, names, fabs, device, progress_name, aux_names,
     count."""
     fin = meta.n_levels - 1
     dt = config.compute_dtype
+    _global_bounds(kw, meta, fabs, names.index(progress_name))
     base = DenseAmrState.coarse_only(meta, names, fabs, device, dt)
-    ic = base.comp(progress_name)
-    if (kw["use_file_minmax"] or kw["prog_min"] is None
-            or kw["prog_max"] is None):
-        lo, hi = _file_minmax([(base.data[lev][ic], base.valid_mask(lev))
-                               for lev in range(fin)])
-        flo, fhi = _host_minmax(fabs[fin], ic, dt)
-        lo, hi = float(np.min([lo, flo])), float(np.max([hi, fhi]))
-        kw["prog_min"] = lo if kw["prog_min"] is None else min(
-            kw["prog_min"], lo)
-        kw["prog_max"] = hi if kw["prog_max"] is None else max(
-            kw["prog_max"], hi)
-    kw["use_file_minmax"] = False
     return write_clustered(
         base, fabs[fin], outfile,
         lambda ds: _with_aux(compute_curvature_dense(ds, progress_name, **kw),
                              ds, aux_names, range(fin)),
         lambda sub: _with_aux(compute_curvature_dense(sub, progress_name,
                                                       **kw),
-                              sub, aux_names, (fin,)))
+                              sub, aux_names, (fin,)), mesh)

@@ -14,6 +14,13 @@ reference's disk-staged memory valve (isosurface.cpp:1919-1998), and the
 clustered path is the valve here.  ``build_distance_function=1`` also
 writes the signed distance to the surface on every level (``geom/sdf.py``,
 dense 3-D path only).
+
+``ndevices=N`` (JAX :75-80, :93-99): the dense path extracts over N
+deep-halo windows (``parallel/dense_shard.py``), each emitting the
+triangles of the dual cells its shard owns, merged by global node key into
+the one-device run's MEF; the clustered path deals its clusters over N
+shards.  Not with DIM=2 plotfiles or ``build_distance_function=1``
+(ROADMAP.md Queue 1 item 9b).
 """
 from __future__ import annotations
 
@@ -24,13 +31,17 @@ import torch
 from .. import config
 from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
-from ..geom.marching_cubes import (extract_isosurface,
-                                   extract_isosurface_sparse, surface_area)
+from ..geom.marching_cubes import (check_engine, extract_isosurface,
+                                   extract_isosurface_sparse,
+                                   extract_isosurface_windows, surface_area)
 from ..geom.marching_squares import extract_isolines
 from ..geom.mef_tools import assemble_polylines
 from ..io.mef import write_mef, write_mef_tecplot
 from ..io.xdmf import write_xdmf
 from ..native import savetxt_fast
+from ..parallel.cluster_shard import cluster_mesh
+from ..parallel.dense_shard import (ISO_HALO, ShardedDenseState,
+                                    mesh_from_pp, refuse_unsharded)
 from ..parmparse import ParmParse
 from ..session import (dense_state, get_session, load_state, stage_submit_io,
                        stage_writes, var_names)
@@ -46,7 +57,8 @@ def main(args: dict) -> None:
     [surface_is_large=0] [cluster_batch=0] [build_distance_function=0
     [dmax=<4*dx_finest>] [dist_outfile=|outfile=<infile>_dist]] [verbose=0]
     [writeLines=0 (DIM=2: the contour's polylines, <base>_lines.dat)]
-    [device=cuda|cpu].  The plotfile loads in float64 whatever dtype=."""
+    [ndevices=1 [mesh_shape=a b [c]]] [device=cuda|cpu].  The plotfile
+    loads in float64 whatever dtype=."""
     pp = ParmParse(args)
     verbose = pp.query_int("verbose", 0)
     infile = pp.get_str("infile")
@@ -79,6 +91,11 @@ def main(args: dict) -> None:
                      dtype=torch.float64, device=device)
     meta = src.meta
     fin = meta.n_levels - 1
+    ndev = pp.query_int("ndevices", 1)
+    if ndev > 1 and meta.ndim2:
+        refuse_unsharded("a DIM=2 plotfile")
+    if ndev > 1 and pp.query_bool("build_distance_function", False):
+        refuse_unsharded("build_distance_function=1")
     sparse = not meta.ndim2 and clustered(
         meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
     label = f"{meta.time:g}"
@@ -87,9 +104,18 @@ def main(args: dict) -> None:
         base = DenseAmrState.coarse_only(meta, src.names, src.fabs, device,
                                          torch.float64)
         t1 = time.perf_counter()
-        mef = extract_isosurface_sparse(base, src.fabs[fin], iso_name,
-                                        iso_val, extras, label=label)
+        mef = extract_isosurface_sparse(
+            base, src.fabs[fin], iso_name, iso_val, extras, label=label,
+            mesh=cluster_mesh(ndev, device) if ndev > 1 else None)
         del base
+    elif ndev > 1:
+        check_engine(engine)
+        sd = ShardedDenseState(meta, src.names, src.fabs,
+                               mesh_from_pp(pp, ndev, device), ISO_HALO,
+                               torch.float64)
+        t1 = time.perf_counter()
+        mef = extract_isosurface_windows(sd, iso_name, iso_val, extras,
+                                         label=label)
     else:
         ds = dense_state(args, src, device, torch.float64)
         t1 = time.perf_counter()

@@ -13,8 +13,13 @@ StreamData (streamFile).
 
 The plotfile loads in float64 whatever ``dtype=``.  Sparse refinement (the
 finest union bbox wasting >4x its cells) traces cluster by cluster, gated
-as in the JAX tool: oneSeedPerCell=1 and force_dense=1 take the dense path.
-``ndevices>1`` (the JAX tool's migrating multi-chip march) is refused.
+as in the JAX tool: oneSeedPerCell=1, force_dense=1 and ndevices>1 take
+the dense path.  ``ndevices=N`` (JAX :77-88) runs the migrating march
+(``parallel/particles.py``) over a 1-D "parts" mesh of N shards: each
+level's grown field cut into N X slabs, one march launch a slab a step,
+the lines moving to the slab that owns them after every step
+(``capacity=`` caps the lines a slab holds); the lines are the one-device
+run's, bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +31,8 @@ from ..amr.cluster import clustered
 from ..amr.dense import DenseAmrState
 from ..io.particles import write_particles
 from ..io.stream_data import StreamData, compute_inside_nodes, write_stream_data
+from ..parallel.mesh import make_mesh
+from ..parallel.particles import AXIS, trace_streamlines_migrating
 from ..parmparse import ParmParse
 from ..session import dense_state, load_state, var_names
 from ..stream.trace import trace_streamlines, trace_streamlines_sparse
@@ -61,8 +68,8 @@ def main(args: dict) -> None:
     """CLI: partStream infile= [oneSeedPerCell=1 [seedStride=1] | isoFile= |
     seedLoc= | seedRakeL= seedRakeR= [seedRakeNum=10]] [Nsteps=51] [hRK=0.1]
     [nGrow=] [finestLevel=] [outFile=<infile>_stream.dat] [partFile=]
-    [streamFile=] [force_dense=0] [device=cuda|cpu].  Loads float64
-    whatever dtype=."""
+    [streamFile=] [force_dense=0] [ndevices=1 [capacity=]]
+    [device=cuda|cpu].  Loads float64 whatever dtype=."""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
     n_steps = pp.query_int("Nsteps", 51)
@@ -77,7 +84,9 @@ def main(args: dict) -> None:
                      max_level=pp.query_int("finestLevel", None),
                      dtype=torch.float64, device=device)
     meta, fabs = src.meta, src.fabs
-    sparse = clustered(meta, pp, [meta.n_levels - 1]) and not one_per_cell
+    ndev = pp.query_int("ndevices", 1)
+    sparse = (clustered(meta, pp, [meta.n_levels - 1]) and not one_per_cell
+              and ndev <= 1)
     ds = (DenseAmrState.coarse_only(meta, src.names, fabs, device,
                                     torch.float64) if sparse
           else dense_state(args, src, device, torch.float64))
@@ -89,7 +98,13 @@ def main(args: dict) -> None:
         seeds, get_elts = get_seeds(pp)
         elements = get_elts()
 
-    if sparse:
+    if ndev > 1:
+        # the Redistribute path (StreamPC.cpp:86-141): per-step migration
+        lines = trace_streamlines_migrating(
+            ds, seeds, n_steps, h_rk, make_mesh(ndev, device,
+                                                axis_names=(AXIS,)),
+            capacity=pp.query_int("capacity", None))
+    elif sparse:
         print("partStream: sparse refinement detected -> clustered path")
         lines = trace_streamlines_sparse(ds, fabs[-1], seeds, n_steps, h_rk,
                                          trace_field=None, sample_names=())

@@ -97,11 +97,31 @@ def test_grad_cli_parity(small_plotfile, tmp_path, monkeypatch, dtype_key):
     _compare_plotfiles(ours, ref, np.float64 if dtype_key else np.float32)
 
 
+def _same_tree(a, b):
+    import filecmp
+    import os
+    files = sorted(os.path.relpath(os.path.join(r, f), a)
+                   for r, _, fs in os.walk(a) for f in fs)
+    assert files and files == sorted(
+        os.path.relpath(os.path.join(r, f), b)
+        for r, _, fs in os.walk(b) for f in fs)
+    for f in files:
+        assert filecmp.cmp(os.path.join(a, f), os.path.join(b, f),
+                           shallow=False), f
+
+
 @pytest.mark.parametrize("key", ["ndevices=2", "shape_bucket=8"])
 def test_unported_options_raise(small_plotfile, tmp_path, key):
+    """shape_bucket= raises; ndevices=2 (ported) writes the ndevices=1
+    run's plotfile byte for byte."""
+    argv = ["grad", f"infile={small_plotfile}", "device=cpu"]
+    if key == "ndevices=2":
+        assert cli.main([*argv, key, f"outfile={tmp_path / 'out'}"]) == 0
+        assert cli.main([*argv, f"outfile={tmp_path / 'ref'}"]) == 0
+        _same_tree(str(tmp_path / "out"), str(tmp_path / "ref"))
+        return
     with pytest.raises(NotImplementedError, match="not ported yet|no PyTorch"):
-        cli.main(["grad", f"infile={small_plotfile}", "device=cpu", key,
-                  f"outfile={tmp_path / 'out'}"])
+        cli.main([*argv, key, f"outfile={tmp_path / 'out'}"])
     assert not (tmp_path / "out").exists()
 
 

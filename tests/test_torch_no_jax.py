@@ -82,7 +82,9 @@ def test_every_port_module_imports_without_jax():
               "tools.stream_sub", "tools.stream_tube_stats", "chem",
               "chem.mechanism", "chem.kinetics", "chem.qpd",
               "tools.chem_tools", "tools.sco2", "tools.build_pmf",
-              "session", "server", "io.prefetch"):
+              "session", "server", "io.prefetch", "parallel",
+              "parallel.mesh", "parallel.dense_shard", "parallel.halo",
+              "parallel.cluster_shard", "parallel.particles"):
         assert "peleanalysis_tpu_torch." + m in mods
     res = _run("import importlib, sys\n"
                "for m in sys.argv[1:]:\n"

@@ -211,8 +211,11 @@ def test_lines_equal_stream_trace_along_v(case, monkeypatch):
 def test_refusals(case, monkeypatch):
     d, plt, _, _ = case
     monkeypatch.chdir(d)
-    with pytest.raises(NotImplementedError, match="ndevices"):
-        cli.main(["partStream", f"infile={plt}", "seedLoc=0.5 0.5 0.5",
-                  "ndevices=2", "device=cpu"])
+    # ndevices=2 (ported: the migrating march) writes the ndevices=1 lines
+    for nd in ("1", "2"):
+        assert cli.main(["partStream", f"infile={plt}", "seedLoc=0.5 0.5 0.5",
+                         f"ndevices={nd}", f"outFile=nd{nd}.dat",
+                         "device=cpu"]) == 0
+    assert open("nd2.dat", "rb").read() == open("nd1.dat", "rb").read()
     with pytest.raises(ValueError, match="must specify"):
         cli.main(["partStream", f"infile={plt}", "device=cpu"])

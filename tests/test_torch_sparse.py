@@ -479,9 +479,20 @@ def test_stats_cli(cases, cli_env, capsys, tmp_path, name):
 ])
 def test_cluster_batch_keys(cases, cli_env, tool, keys):
     """cluster_batch=0 runs the clusters one after another; cluster_batch=1
-    (canonical clusters in one XLA dispatch) and ndevices=2 raise."""
+    (canonical clusters in one XLA dispatch) raises; ndevices=2 deals the
+    clusters over two shards and writes the same files."""
     common = [tool, f"infile={cases['three']}", *keys, "device=cpu"]
-    for key in ("cluster_batch=1", "ndevices=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            cli.main([*common, key])
-    assert cli.main([*common, "cluster_batch=0"]) == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        cli.main([*common, "cluster_batch=1"])
+    out = {"grad": "outfile", "isosurface": "outfile_base",
+           "conditionalMean": "outfile"}[tool]
+    files = {}
+    for name, key in (("one", "cluster_batch=0"), ("two", "ndevices=2")):
+        assert cli.main([*common, key, f"{out}={name}"]) == 0
+        path = name + (".mef" if tool == "isosurface" else "")
+        files[name] = sorted(
+            (os.path.relpath(os.path.join(r, f), path),
+             open(os.path.join(r, f), "rb").read())
+            for r, _, fs in os.walk(path) for f in fs) if os.path.isdir(
+                path) else open(path, "rb").read()
+    assert files["one"] == files["two"]
