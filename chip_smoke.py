@@ -295,8 +295,8 @@ from peleanalysis_tpu_torch.ops import grad_kernels as gk
 from peleanalysis_tpu_torch.parallel.dense_shard import (
     CURVATURE_STAGES, GRAD_STAGES, ISO_HALO, ShardedDenseState,
     make_spatial_mesh, stencil_halo)
-from peleanalysis_tpu_torch.parallel.halo import (halo_grad, join_blocks,
-                                                  split_blocks)
+from peleanalysis_tpu_torch.parallel.halo import (WindowHalo, halo_grad,
+                                                  join_blocks, split_blocks)
 from peleanalysis_tpu_torch.ops import solve
 from peleanalysis_tpu_torch.ops import stats_kernels as sk
 from peleanalysis_tpu_torch.stream import march_kernels as mk
@@ -1051,6 +1051,9 @@ def device_write_split(ds, path: str) -> dict:
 
 
 PROFILE_PAUSES_S = (0.5, 2.0)
+# the time kernel_profiles may spend profiling fns alone when its joint
+# session keeps losing markers
+PROFILE_FALLBACK_S = 30.0
 
 
 def profiled(fn):
@@ -2013,7 +2016,10 @@ def kernel_profiles(fns: dict) -> dict:
     marker kernel before each fn and one after the last; a fn's device
     events are those between its two markers.  A window that lost a
     marker is taken again after a longer pause, then each fn is
-    profiled alone."""
+    profiled alone until ``PROFILE_FALLBACK_S`` have gone (a long
+    process's profiler sessions now and then lose device events, and ~20
+    verbs profiled alone took ~2 min on an H100 80GB HBM3 at 700 W); the
+    fns left get None and ``not_measured``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for pause in PROFILE_PAUSES_S:
@@ -2037,7 +2043,17 @@ def kernel_profiles(fns: dict) -> dict:
         if len(marks) == len(fns) + 1:
             break
     else:
-        return {k: kernel_profile(fn) for k, fn in fns.items()}
+        out, t0 = {}, time.perf_counter()
+        for k, fn in fns.items():
+            if time.perf_counter() - t0 < PROFILE_FALLBACK_S:
+                out[k] = {**kernel_profile(fn), "profiled_alone": True}
+            else:
+                out[k] = {"wall_ms": None, "device_ms": None,
+                          "copy_ms": None, "kernels": None,
+                          "trace_whole": False,
+                          "not_measured": "profiler fallback over its "
+                          f"{PROFILE_FALLBACK_S} s"}
+        return out
 
     def ms(evs) -> float:
         return sum(e.end_ns() - e.start_ns() for e in evs) / 1e6
@@ -3857,13 +3873,16 @@ def phase_tools84(tmp: str, stream: dict, dev) -> dict:
     tools = {k: {"cold_s": cold[k]} for k in runs}
     # device time in one profiler session; the distance verbs' comes from
     # sdf_split, layer by layer (a trace of either holds ~0.76 M kernels
-    # of the sweeps' graphs and loses events)
+    # of the sweeps' graphs and loses events); plt2npz's is its copies
+    # (68-78 ms of a 4-6 s host zlib wall on an H100 80GB HBM3 at
+    # 700 W), left out to keep the script's time
     t1 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         profs = kernel_profiles({
             k: (lambda a=args, t=tool: cli.main([t, *a]))
             for k, (tool, args) in runs.items()
-            if k not in ("buildDistance", "isosurface_distance")})
+            if k not in ("buildDistance", "isosurface_distance",
+                         "plt2npz_levels", "plt2npz_flat")})
     for k, prof in profs.items():
         tools[k].update({f: prof[f] for f in ("device_ms", "copy_ms",
                                               "kernels", "trace_whole")})
@@ -5160,6 +5179,155 @@ def sharded_runs(name: str, argv, out_key: str, ext: str, counted: dict,
     return res
 
 
+def plotfile_diff(a: str, b: str) -> dict:
+    """The largest difference of each component of two plotfiles of one
+    layout over its largest value (finite cells), and whether their NaN
+    sets are equal."""
+    ra, rb = PlotfileReader(a), PlotfileReader(b)
+    if ra.var_names != rb.var_names or ra.meta.n_levels != rb.meta.n_levels:
+        raise AssertionError(f"{a} and {b} differ in layout")
+    err = {n: 0.0 for n in rb.var_names}
+    scale = dict(err)
+    nan_equal = True
+    for lev in range(rb.meta.n_levels):
+        for fa, fb in zip(ra.read_level(lev), rb.read_level(lev)):
+            for c, n in enumerate(rb.var_names):
+                nan_equal &= bool(np.array_equal(np.isnan(fa[c]),
+                                                 np.isnan(fb[c])))
+                ok = np.isfinite(fb[c]) & np.isfinite(fa[c])
+                err[n] = max(err[n], float(np.abs(fa[c][ok] - fb[c][ok])
+                                           .max(initial=0.0)))
+                scale[n] = max(scale[n], float(np.abs(fb[c][ok])
+                                               .max(initial=0.0)))
+    rel = {n: err[n] / max(scale[n], 1e-300) for n in err}
+    return {"max_rel": max(rel.values()), "by_component": rel,
+            "nan_sets_equal": nan_equal}
+
+
+# the sharded smoothing solve is not byte-equal to one device (its dots
+# sum in another order): float32 within the JAX package's own 5e-5
+SMOOTH_SHARDED_TOL = 5e-5
+
+
+def sharded_smooth(plt: str, counted: dict, zero: dict, held, mesh) -> dict:
+    """curvature do_smooth=1 (composite) at production, ndevices=1 against
+    ndevices=4 mesh_shape=2 2: cold and warm walls, the CG iterations and
+    peak device memory of each, the sharded cold run's launches (7
+    grad_mag a window level), the largest relative difference and the NaN
+    sets, one iteration's halo update (bytes, copies), and the sharded run
+    once more under ``held``."""
+    argv = ["curvature", f"infile={plt}", "progressName=temp", "do_smooth=1",
+            "do_gaussCurv=1"]
+    sd = ShardedDenseState(load_plotfile_fabs(plt, ["temp"])[0], ["temp"],
+                           None, mesh, stencil_halo(CURVATURE_STAGES,
+                                                    "quadratic"),
+                           torch.float32)
+    expect = {**zero, "grad_mag": 7 * sum(p.n_levels for p in sd.plans)}
+    cells, copies = WindowHalo(sd).volume()
+    res = {"halo_update": {"cells": cells, "copies": copies,
+                           "bytes": cells * 4,
+                           "note": "one per CG iteration (the operator's "
+                           "average-down, every level) and one after "
+                           "the solve; float32, one component"}}
+    for way, keys in (("one", []), ("sharded", list(SHARD_KEYS))):
+        args = [*argv[1:], f"outfile=curvature_smooth_{way}", *keys]
+        solve.ITERATIONS.clear()
+        reset_counts()
+        cold = run_wall(argv[0], args)
+        got = counts()
+        iters = list(solve.ITERATIONS)
+        if way == "sharded":
+            for k, v in got.items():
+                counted[k] += v
+            if got != expect:
+                raise AssertionError(f"sharded smoothing launches {got}, "
+                                     f"expected {expect}")
+        torch.cuda.reset_peak_memory_stats()
+        solve.ITERATIONS.clear()
+        warm = run_wall(argv[0], args)
+        if list(solve.ITERATIONS) != iters:
+            raise AssertionError(f"{way}: CG iterations {iters} then "
+                                 f"{solve.ITERATIONS}")
+        res[way] = {"cold_s": cold, "warm_s": warm, "cg_iterations": iters,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if way == "sharded":
+            with held:
+                res[way]["held_s"] = run_wall(argv[0], args)
+    if res["one"]["cg_iterations"] != res["sharded"]["cg_iterations"]:
+        raise AssertionError(f"CG iterations {res['one']['cg_iterations']} "
+                             f"(1 device) vs {res['sharded']['cg_iterations']}")
+    diff = plotfile_diff("curvature_smooth_sharded", "curvature_smooth_one")
+    if not diff["nan_sets_equal"] or diff["max_rel"] > SMOOTH_SHARDED_TOL:
+        raise AssertionError(f"sharded smoothing differs: {diff}")
+    res["vs_one_device"] = {"tolerance": SMOOTH_SHARDED_TOL, **diff}
+    res["launches"] = expect["grad_mag"]
+    return res
+
+
+# a DIM=2 hierarchy at production: 1024^2 at level 0, two levels of
+# ratio 2 (each over half the coarser one's extent), 64^2 boxes; its
+# 1000 K contour is a circle inside the finest level
+DIM2_CASE = dict(n_cell=1024, n_levels=3, max_grid_size=64, ndim=2)
+DIM2_ISO = 1000.0
+
+
+def sharded_dim2(tmp: str, counted: dict, zero: dict, held, mesh) -> dict:
+    """grad, curvature and the iso-lines of ``DIM2_CASE`` (written here,
+    from the 2-D default fields), ndevices=1 against ndevices=4
+    mesh_shape=2 2: byte-equal files, walls, peak memory and launches
+    (grad_mag: one a window level for grad, 7 for curvature)."""
+    plt = os.path.join(tmp, "plt_dim2")
+    t0 = time.perf_counter()
+    write_synthetic_plotfile(plt, **DIM2_CASE)
+    write_s = time.perf_counter() - t0
+    meta = load_plotfile_fabs(plt, ["temp"])[0]
+    wl = {k: window_levels(meta, mesh, h, dt)["window_levels"]
+          for k, h, dt in (("grad", stencil_halo(GRAD_STAGES, "quadratic"),
+                            torch.float32),
+                           ("curvature", stencil_halo(CURVATURE_STAGES,
+                                                      "quadratic"),
+                            torch.float32))}
+    return {
+        "case": DIM2_CASE, "cells": sum(ba.total_cells() for ba in meta.bas),
+        "write_s": write_s,
+        "grad": sharded_runs("dim2", ["grad", f"infile={plt}",
+                                      "gradVar=temp"], "outfile", "",
+                             counted, {**zero, "grad_mag": wl["grad"]},
+                             held=held),
+        "curvature": sharded_runs(
+            "dim2", ["curvature", f"infile={plt}", "progressName=temp"],
+            "outfile", "", counted,
+            {**zero, "grad_mag": 7 * wl["curvature"]}, held=held),
+        "isosurface": sharded_runs(
+            "dim2", ["isosurface", f"infile={plt}", "isoCompName=temp",
+                     f"isoVal={DIM2_ISO}"], "outfile_base", ".mef", counted,
+            zero)}
+
+
+def sharded_distance(plt: str, counted: dict, zero: dict) -> dict:
+    """isosurface build_distance_function=1 at production, ndevices=1
+    against ndevices=4 mesh_shape=2 2: the distance plotfiles byte-equal,
+    walls and peak memory."""
+    res = {}
+    for way, keys in (("one", []), ("sharded", list(SHARD_KEYS))):
+        args = [f"infile={plt}", "isoCompName=temp", "isoVal=1000",
+                "build_distance_function=1", f"outfile_base=dist_{way}",
+                f"dist_outfile=dist_{way}_plt", *keys]
+        reset_counts()
+        cold = run_wall("isosurface", args)
+        got = counts()
+        if got != zero:
+            raise AssertionError(f"distance launches {got}")
+        torch.cuda.reset_peak_memory_stats()
+        warm = run_wall("isosurface", args)
+        res[way] = {"cold_s": cold, "warm_s": warm,
+                    "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    same_files("dist_one_plt", "dist_sharded_plt")
+    same_files("dist_one.mef", "dist_sharded.mef")
+    res["byte_equal"] = True
+    return res
+
+
 def halo_grad_vs_plain(dev) -> dict:
     """``parallel/halo.py`` halo_grad over 2 x 2 shards on the card (the
     grad_mag kernel on each grown shard) against the plain version of the
@@ -5242,8 +5410,10 @@ def march_blocks_vs_plain(dev) -> dict:
 def phase_sharded(tmp: str, dev) -> tuple:
     """ndevices=4 (2 x 2 blocks, every shard on the one card) against
     ndevices=1 at production size and on the sparse parity case, partStream
-    with the production seeds, and the kernels held to their plain
-    versions at the sharded paths' shapes."""
+    with the production seeds, the smoothed curvature (``sharded_smooth``),
+    a DIM=2 hierarchy (``sharded_dim2``) and the isosurface's distance
+    (``sharded_distance``), and the kernels held to their plain versions at
+    the sharded paths' shapes."""
     t0 = time.perf_counter()
     plt = os.path.join(tmp, "p17_plt")
     sparse = os.path.join(tmp, "plt_sparse")
@@ -5297,6 +5467,16 @@ def phase_sharded(tmp: str, dev) -> tuple:
                 "sparse", ["isosurface", f"infile={sparse}",
                            "isoCompName=temp", f"isoVal={SPARSE_ISO}"],
                 "outfile_base", ".mef", counted, zero, one_d)}
+        t1 = time.perf_counter()
+        tools["curvature_smooth"] = sharded_smooth(plt, counted, zero, held,
+                                                   mesh)
+        tools["curvature_smooth"]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tools["dim2"] = sharded_dim2(tmp, counted, zero, held, mesh)
+        tools["dim2"]["seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        tools["distance"] = sharded_distance(plt, counted, zero)
+        tools["distance"]["seconds"] = time.perf_counter() - t1
     finally:
         os.chdir(cwd)
     if counted["stream_march"] == 0 or (counted["stream_march_order_key"]

@@ -42,12 +42,17 @@ def covered_mask_over(meta: AmrMeta, lev: int, box: Box) -> np.ndarray:
     out = np.zeros(box.shape, dtype=bool)
     if lev + 1 < meta.n_levels:
         geom = meta.geoms[lev]
-        shifts = _periodic_shifts(geom.is_periodic, geom.domain)
-        for fb in meta.bas[lev + 1].coarsen(meta.ref_ratio[lev]):
-            for sh in shifts:
-                isect = box.intersect(fb.shift(sh))
-                if not isect.is_empty():
-                    out[_box_slices(isect, box)] = True
+        r = meta.ref_ratio[lev]
+        fine = meta.bas[lev + 1]
+        # the finer boxes coarsened (Box.coarsen's floor division; a
+        # promoted 2-D z of 0 stays 0) and cut with box, in numpy
+        lo, hi = fine.lo // r, fine.hi // r
+        for sh in _periodic_shifts(geom.is_periodic, geom.domain):
+            ilo = np.maximum(lo + sh, box.lo) - box.lo
+            ihi = np.minimum(hi + sh, box.hi) - box.lo
+            hit = (ilo <= ihi).all(axis=1)
+            for a, b in zip(ilo[hit], ihi[hit]):
+                out[a[0]: b[0] + 1, a[1]: b[1] + 1, a[2]: b[2] + 1] = True
     return out
 
 

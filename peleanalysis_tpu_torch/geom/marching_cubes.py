@@ -150,12 +150,13 @@ def _grown_masks(dstate: DenseAmrState, lev: int, win=None):
 
 
 def _corner_keys_at(dstate: DenseAmrState, lev: int, inlev_p: np.ndarray,
-                    ii: np.ndarray, jj: np.ndarray,
-                    kk: np.ndarray) -> np.ndarray:
+                    ii: np.ndarray, jj: np.ndarray, kk: np.ndarray,
+                    win=None) -> np.ndarray:
     """Packed (level, global cell) keys for grown-bbox cell indices;
-    collapsed ghost/hole corners are keyed by their coarse parent."""
+    collapsed ghost/hole corners are keyed by their coarse parent.  A
+    shard window (``win``) keys by the global geometry."""
     meta = dstate.meta
-    geom = meta.geoms[lev]
+    geom = meta.geoms[lev] if win is None else win.geoms[lev]
     dom = geom.domain
     gbox = dstate.lmeta[lev].bbox.grow(1)
     G = []

@@ -36,6 +36,15 @@ float32 and so against 0), or float64 as with ``dtype=float64`` (x64 on:
 the edge vectors are float32 differences, everything after them float64).
 The seeded distances are widened to float64; the sweeps re-evaluate in
 float64 on the float64 triangles, so ``phi`` mixes the two as in JAX.
+
+Over shards (``distance_shards``: the blocks of a grid that a
+``parallel/dense_shard.py`` partition owns, each on its shard's device)
+the result is the one-device grid's, byte for byte: each block and a
+one-cell ring is seeded as the whole grid seeds it (``band_seed``'s
+``box``: global cell indices, centres and tie ranks), and the sweeps walk
+every direction's planes in the one-device order across the blocks: a
+plane step on every shard whose block holds the plane, then that plane's
+ring cells copied from their owners before the next plane reads them.
 """
 from __future__ import annotations
 
@@ -44,9 +53,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..amr.box import Box
+from ..ops.vec3 import sqrt
+
 # window cells per dispatch of the band seeding and the parity hits: a few
 # GB of float64 temporaries at the limit, far inside an 80 GB card
 MAX_CELLS = 1 << 22
+# rounds of six sweeps at most
+MAX_ROUNDS = 8
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -104,7 +118,10 @@ def point_tri_distance(p: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     closest = torch.where(cond_b[..., None], b.to(closest.dtype), closest)
     closest = torch.where(cond_a[..., None], a.to(closest.dtype), closest)
     e = p - closest
-    return torch.sqrt(_dot(e, e))
+    # correctly rounded on the CPU too (``ops/vec3.sqrt``): PyTorch's
+    # vectorised CPU root depends on how a call's cells are split, and the
+    # shards' blocks split them otherwise than the whole grid
+    return sqrt(_dot(e, e))
 
 
 def _span_buckets(lo: np.ndarray, hi: np.ndarray, pad: int):
@@ -128,57 +145,78 @@ def _offsets(span, device) -> torch.Tensor:
 
 def _band_windows(tri: torch.Tensor, tlo: np.ndarray, buckets, origin, dx,
                   shape, dmax: float, exact_band: int,
-                  seed_dtype: torch.dtype):
+                  seed_dtype: torch.dtype, box=None):
     """Yield (flat cell index, float64 distance, window rank) of every
     window cell inside the grid whose distance is below dmax, bucket by
-    bucket and chunk by chunk in the JAX version's order."""
+    bucket and chunk by chunk in the JAX version's order.  ``box`` (lo,
+    hi): only the cells in that part of the grid, flat indices over it;
+    each cell's distance and the ranks are the whole grid's."""
     dev = tri.device
     tri32 = tri.to(torch.float32)
     lo_t = torch.from_numpy(tlo - exact_band).to(dev)
     shp = torch.tensor(shape, device=dev)
     org = torch.tensor(origin, dtype=seed_dtype, device=dev)
     dxt = torch.tensor(dx, dtype=seed_dtype, device=dev)
+    blo, bhi = ((0,) * 3, tuple(n - 1 for n in shape)) if box is None \
+        else box
+    bshape = [h - l + 1 for l, h in zip(blo, bhi)]
+    blo_t = torch.tensor(blo, device=dev)
+    bhi_t = torch.tensor(bhi, device=dev)
     rank0 = 0
     for span, sel in buckets:
         offs = _offsets(span, dev)
         m = offs.shape[0]
         chunk = max(16, MAX_CELLS // m)
-        for s in range(0, len(sel), chunk):
-            ids = torch.from_numpy(sel[s: s + chunk]).to(dev)
+        pos = np.arange(len(sel))
+        if box is not None:
+            # the triangles whose window meets the box, at their ranks
+            wlo = tlo[sel] - exact_band
+            pos = pos[((wlo <= np.array(bhi))
+                       & (wlo + np.array(span) - 1 >= np.array(blo)))
+                      .all(axis=1)]
+        for s in range(0, len(pos), chunk):
+            ids = torch.from_numpy(sel[pos[s: s + chunk]]).to(dev)
             idx = lo_t[ids][:, None, :] + offs[None]           # [C, M, 3]
             ok = ((idx >= 0) & (idx < shp)).all(-1)
+            if box is not None:
+                ok &= ((idx >= blo_t) & (idx <= bhi_t)).all(-1)
             idxc = torch.minimum(torch.clamp(idx, min=0), shp - 1)
             p = org + (idxc.to(seed_dtype) + 0.5) * dxt
             t = tri32[ids]
             d = point_tri_distance(p, t[:, None, 0], t[:, None, 1],
                                    t[:, None, 2]).to(torch.float64)
             keep = ok & (d < dmax)
-            flat = (idxc[..., 0] * shape[1] + idxc[..., 1]) * shape[2] \
-                + idxc[..., 2]
-            rank = (rank0 + s + torch.arange(len(ids), device=dev))[:, None] \
-                .expand(-1, m)
+            rel = idxc - blo_t
+            flat = (rel[..., 0] * bshape[1] + rel[..., 1]) * bshape[2] \
+                + rel[..., 2]
+            rank = (rank0 + torch.from_numpy(pos[s: s + chunk]).to(dev)
+                    )[:, None].expand(-1, m)
             yield flat[keep], d[keep], rank[keep]
         rank0 += len(sel)
 
 
 def band_seed(tri_verts: np.ndarray, tri: torch.Tensor, origin, dx,
               shape: Tuple[int, int, int], dmax: float, exact_band: int = 1,
-              seed_dtype: torch.dtype = torch.float32):
+              seed_dtype: torch.dtype = torch.float32, box=None):
     """Exact-band seeding on the device of ``tri`` (the float64 triangles
     ``tri_verts`` there): (phi float64, closest int64) of ``shape``, dmax
-    and -1 where no window reaches."""
+    and -1 where no window reaches.  ``box`` (lo, hi index tuples): the
+    seeds of that part of the grid only, equal to the whole grid's
+    there."""
     dev = tri.device
-    n = int(np.prod(shape))
+    out_shape = tuple(shape) if box is None else tuple(
+        h - l + 1 for l, h in zip(*box))
+    n = int(np.prod(out_shape))
     phi = torch.full((n,), dmax, dtype=torch.float64, device=dev)
     closest = torch.full((n,), -1, dtype=torch.int64, device=dev)
     if len(tri_verts) == 0:
-        return phi.reshape(shape), closest.reshape(shape)
+        return phi.reshape(out_shape), closest.reshape(out_shape)
     oa, dxa = np.asarray(origin, np.float64), np.asarray(dx, np.float64)
     tlo = np.floor((tri_verts.min(axis=1) - oa) / dxa - 0.5).astype(np.int64)
     thi = np.floor((tri_verts.max(axis=1) - oa) / dxa - 0.5).astype(np.int64)
     buckets = _span_buckets(tlo, thi, exact_band)
     args = (tri, tlo, buckets, tuple(oa), tuple(dxa), shape, dmax,
-            exact_band, seed_dtype)
+            exact_band, seed_dtype, box)
     for flat, d, _ in _band_windows(*args):
         phi.scatter_reduce_(0, flat, d, "amin")
     # ties: the least rank among the windows reaching each cell's minimum
@@ -191,7 +229,7 @@ def band_seed(tri_verts: np.ndarray, tri: torch.Tensor, origin, dx,
     ids = torch.from_numpy(np.concatenate([sel for _, sel in buckets])).to(dev)
     found = best != big
     closest[found] = ids[best[found]]
-    return phi.reshape(shape), closest.reshape(shape)
+    return phi.reshape(out_shape), closest.reshape(out_shape)
 
 
 def _plane_shifts(a: torch.Tensor, fill) -> torch.Tensor:
@@ -211,10 +249,12 @@ class _AxisSweep:
     indices by ``step``.  The indices are device tensors, so on a card the
     step is captured once as a CUDA graph and replayed plane after plane
     (one launch a plane instead of ~170) when ``pool`` is a graph memory
-    pool; otherwise it runs op by op."""
+    pool; otherwise it runs op by op.  ``own`` (bool over the grid): only
+    these cells' updates set ``changed`` (a shard's part of a grid whose
+    other cells its neighbours update)."""
 
     def __init__(self, phi, closest, tri, centers, axis: int, dmax: float,
-                 changed, pool=None):
+                 changed, pool=None, own=None):
         dev = phi.device
         self.phi, self.closest, self.axis = phi, closest, axis
         self.A, self.B, self.C = tri[:, 0], tri[:, 1], tri[:, 2]
@@ -231,7 +271,7 @@ class _AxisSweep:
         self.shift_no = torch.arange(9, device=dev)[:, None, None]
         self.prev, self.cur, self.step = (
             torch.zeros(1, dtype=torch.int64, device=dev) for _ in range(3))
-        self.graph, self.pool = None, pool
+        self.graph, self.pool, self.own = None, pool, own
 
     def _plane_step(self) -> None:
         ax, dmax = self.axis, self.dmax
@@ -255,6 +295,8 @@ class _AxisSweep:
                              torch.where(upd, best, cur_ph).unsqueeze(ax))
         self.closest.index_copy_(ax, self.cur, torch.where(
             upd, torch.gather(t, 0, k[None])[0], cur_cl).unsqueeze(ax))
+        if self.own is not None:
+            upd = upd & self.own.index_select(ax, self.cur).squeeze(ax)
         self.changed |= upd.any()
         self.prev += self.step
         self.cur += self.step
@@ -288,7 +330,7 @@ class _AxisSweep:
 
 
 def sweep(phi: torch.Tensor, closest: torch.Tensor, tri: torch.Tensor,
-          centers, dmax: float, max_rounds: int = 8,
+          centers, dmax: float, max_rounds: int = MAX_ROUNDS,
           graphs: bool = True) -> int:
     """The axis-sequential plane sweeps, in place on float64 ``phi`` and
     ``closest`` (module docstring) with the cell centres ``centers[d]``
@@ -342,6 +384,111 @@ def sweep_reach(tri_verts: np.ndarray, tri: torch.Tensor,
                for d in range(3)]
     return sweep(phi[box], closest[box], tri, centers, dmax,
                  graphs=graphs)
+
+
+def _sweep_shards(tri, tri_verts, phis, closests, rings, blocks, origin, dx,
+                  shape, dmax: float) -> int:
+    """``sweep_reach`` over shards, in place on each shard's ``phis[s]``
+    and ``closests[s]`` (over ``rings[s]``, its block ``blocks[s]`` grown
+    by one cell, Boxes of grid indices; ``tri[s]`` the triangles on its
+    device): every plane step of the one-device sweeps, in its order, on
+    the shards whose blocks hold the plane, each followed by the copy of
+    that plane's ring cells from their owners.  Returns the rounds run."""
+    origin, dx = np.asarray(origin, np.float64), np.asarray(dx, np.float64)
+    reach = _reach(tri_verts, origin, dx, shape, dmax)
+    R = Box(tuple(sl.start for sl in reach), tuple(sl.stop - 1
+                                                   for sl in reach))
+    own = [None if b is None or b.intersect(R).is_empty()
+           else b.intersect(R) for b in blocks]
+    live = [s for s in range(len(blocks)) if own[s] is not None]
+    part = {s: own[s].grow(1).intersect(R) for s in live}
+
+    def view(t, box, ring):
+        return t[tuple(slice(box.lo[d] - ring.lo[d], box.hi[d] + 1
+                             - ring.lo[d]) for d in range(3))]
+
+    phi = {s: view(phis[s], part[s], rings[s]) for s in live}
+    cl = {s: view(closests[s], part[s], rings[s]) for s in live}
+    changed, pools, sweeps = {}, {}, {}
+    for s in live:
+        dev = phi[s].device
+        changed[s] = torch.zeros((), dtype=torch.bool, device=dev)
+        if dev.type == "cuda" and dev not in pools:
+            pools[dev] = torch.cuda.graph_pool_handle()
+        centers = [torch.tensor(origin[d] + (np.arange(part[s].lo[d],
+                                                       part[s].hi[d] + 1)
+                                             + 0.5) * dx[d],
+                                dtype=torch.float64, device=dev)
+                   for d in range(3)]
+        mine = torch.from_numpy(np.pad(np.ones(own[s].shape, bool), [
+            (own[s].lo[d] - part[s].lo[d], part[s].hi[d] - own[s].hi[d])
+            for d in range(3)])).to(dev)
+        sweeps[s] = [_AxisSweep(phi[s], cl[s], tri[s], centers, a, dmax,
+                                changed[s], pools.get(dev), mine)
+                     for a in range(3)]
+    copies = [(s, t, part[s].intersect(own[t])) for s in live for t in live
+              if s != t and not part[s].intersect(own[t]).is_empty()]
+    dev0 = phi[live[0]].device if live else None
+    for rnd in range(MAX_ROUNDS):
+        for c in changed.values():
+            c.fill_(False)
+        for a in range(3):
+            n = R.shape[a]
+            for first, step in ((1, 1), (n - 2, -1)):
+                for k in range(n - 1):
+                    p = R.lo[a] + first + k * step
+                    for s in live:
+                        if own[s].lo[a] <= p <= own[s].hi[a]:
+                            sweeps[s][a].run(p - part[s].lo[a], step, 1)
+                    for s, t, box in copies:
+                        if box.lo[a] <= p <= box.hi[a]:
+                            lo, hi = list(box.lo), list(box.hi)
+                            lo[a] = hi[a] = p
+                            plane = Box(tuple(lo), tuple(hi))
+                            for src, dst in ((phi, phi), (cl, cl)):
+                                d = view(dst[s], plane, part[s])
+                                d.copy_(view(src[t], plane, part[t]).to(
+                                    d.device))
+        if not live or not bool(torch.stack(
+                [c.to(dev0) for c in changed.values()]).any()):
+            return rnd + 1
+    return MAX_ROUNDS
+
+
+def distance_shards(tri_verts: np.ndarray, origin, dx,
+                    shape: Tuple[int, int, int], blocks, devices,
+                    dmax: float, seed_dtype: torch.dtype = torch.float32):
+    """``unsigned_distance_grid``'s |phi| on the blocks of the grid that
+    shards own (module docstring): ``blocks[s]`` the (lo, hi) index tuples
+    of shard s's block, or None, ``devices[s]`` its device.  Returns each
+    shard's float64 |phi| over its block (None where it has none), equal
+    to the whole grid's there."""
+    grid = Box((0, 0, 0), tuple(n - 1 for n in shape))
+    blocks = [None if b is None else Box(*b) for b in blocks]
+    rings = [None if b is None else b.grow(1).intersect(grid)
+             for b in blocks]
+    tris, tri = {}, []
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev not in tris:
+            tris[dev] = torch.from_numpy(np.ascontiguousarray(
+                tri_verts, np.float64)).to(dev)
+        tri.append(tris[dev])
+    phis, closests = [None] * len(blocks), [None] * len(blocks)
+    for s, ring in enumerate(rings):
+        if ring is not None:
+            phis[s], closests[s] = band_seed(
+                tri_verts, tri[s], origin, dx, shape, dmax, 1, seed_dtype,
+                box=(ring.lo, ring.hi))
+    if len(tri_verts):
+        _sweep_shards(tri, tri_verts, phis, closests, rings, blocks, origin,
+                      dx, shape, dmax)
+    out = []
+    for b, ring, phi in zip(blocks, rings, phis):
+        out.append(None if b is None else torch.clamp(phi[tuple(
+            slice(b.lo[d] - ring.lo[d], b.hi[d] + 1 - ring.lo[d])
+            for d in range(3))], 0.0, dmax))
+    return out
 
 
 def unsigned_distance_grid(tri_verts: np.ndarray, origin, dx,

@@ -9,6 +9,12 @@ host once (one synchronisation an iteration, at most ``n_iter``); with
 ``rtol=None`` the loop runs exactly ``n_iter`` iterations and never waits on
 the device.  ``ITERATIONS`` lists the iteration count of every solve
 since a caller cleared it.
+
+``cg_solve_sharded`` is the same loop over shard windows (the JAX
+package's GSPMD-sharded solve): each dot is summed per shard over the
+cells it owns and the partial sums are added on the first shard's device
+in shard order, so its sums run in another order than the one-device
+solve's and its result is not byte-equal to it.
 """
 from __future__ import annotations
 
@@ -102,6 +108,53 @@ def cg_solve_composite(apply_A: Callable, b_list, x0_list, mask_list,
     r0 = mask_mul([bi - ai for bi, ai in zip(b_list, apply_A(x0_list))])
     rs0 = dot(r0, r0)
     return _loop(step, (list(x0_list), r0, list(r0), rs0), rs0, n_iter, rtol)
+
+
+def cg_solve_sharded(apply_A: Callable, b, x0, masks, weights, n_iter: int,
+                     rtol: Optional[float] = None):
+    """Conjugate gradient over shards.  ``b``, ``x0``, ``masks`` and
+    ``weights`` are ``[shard][part]`` lists of tensors on each shard's
+    device: ``masks`` (bool) the cells solved for, as ``cg_solve``'s mask
+    or ``cg_solve_composite``'s mask_list; ``weights`` the dot weights,
+    zero off the cells the shard owns, so that each unknown counts once.
+    ``apply_A`` maps such a list to another (exchanging the halos it
+    reads).  alpha and beta are formed on the first shard's device and
+    copied to each shard.  rtol as in ``cg_solve``."""
+    dev0 = b[0][0].device
+    devs = [bs[0].device for bs in b]
+    tiny = torch.finfo(b[0][0].dtype).tiny
+
+    def dot(us, vs):
+        parts = [sum(torch.sum(u * v * w) for u, v, w in zip(ua, va, wa))
+                 .to(dev0) for ua, va, wa in zip(us, vs, weights)]
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
+
+    def mask_mul(us):
+        return [[u * m for u, m in zip(ua, ma)] for ua, ma in zip(us, masks)]
+
+    def step(x, r, p, rs):
+        Ap = mask_mul(apply_A(p))
+        alpha = _guarded_div(rs, dot(p, Ap), tiny)
+        al = [alpha.to(d) for d in devs]
+        x = [[xi + a * pi * mi for xi, pi, mi in zip(xa, pa, ma)]
+             for xa, pa, ma, a in zip(x, p, masks, al)]
+        r = [[ri - a * api for ri, api in zip(ra, apa)]
+             for ra, apa, a in zip(r, Ap, al)]
+        rs_new = dot(r, r)
+        beta = _guarded_div(rs_new, rs, tiny)
+        be = [beta.to(d) for d in devs]
+        p = [[(ri + bb * pi) * mi for ri, pi, mi in zip(ra, pa, ma)]
+             for ra, pa, ma, bb in zip(r, p, masks, be)]
+        return x, r, p, rs_new
+
+    r0 = mask_mul([[bi - ai for bi, ai in zip(ba, aa)]
+                   for ba, aa in zip(b, apply_A(x0))])
+    rs0 = dot(r0, r0)
+    return _loop(step, ([list(xa) for xa in x0], r0, r0, rs0), rs0, n_iter,
+                 rtol)
 
 
 def cg_iterations_to_tol(apply_A: Callable, b_list, x0_list, mask_list,

@@ -18,7 +18,7 @@ import torch
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """The correctly rounded square root of ``x`` on its device."""
     if x.device.type == "cpu":
-        return torch.from_numpy(np.sqrt(x.numpy()))
+        return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
     return torch.sqrt(x)
 
 

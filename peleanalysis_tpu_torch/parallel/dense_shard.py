@@ -38,11 +38,13 @@ each has a :class:`WindowInfo` (``window_info``) that keeps the enum
 engine's node keys, node rows and triangle order global
 (``geom/marching_cubes.py``).
 
+A DIM=2 plotfile (promoted to nz=1) is cut along x and y only: its z
+extent of 1 is never refined, coarsened or cut.  The smoothing solve is
+elliptic, so no finite halo makes a window exact: its shards keep every
+window resident and exchange halos inside the solve
+(``parallel/halo.py`` ``WindowHalo``, ``tools/curvature.py``).
 ``pad_state_to`` / ``pad_state_divisible`` exist for XLA's divisibility and
-for ``shape_bucket=`` (refused): they have no counterpart.  The composite
-smoothing solve is elliptic, so no finite halo makes a window exact:
-``do_smooth=1`` with ``ndevices>1`` and DIM=2 plotfiles are refused
-(ROADMAP.md Queue 1 item 9b).
+for ``shape_bucket=`` (refused): they have no counterpart.
 """
 from __future__ import annotations
 
@@ -62,8 +64,6 @@ from ..ops.dense_fill import interp_stencil
 from .mesh import Mesh, shard_devices
 
 SPATIAL_AXES = ("x", "y", "z")
-# the refusal's pointer for what this slice leaves out
-ITEM_9B = "ROADMAP.md Queue 1 item 9b"
 _FAR = 1 << 40
 
 
@@ -84,11 +84,6 @@ def mesh_from_pp(pp, ndev: int, device) -> Mesh:
     """Mesh from the shared CLI keys: ndevices=N [mesh_shape=a b [c]]."""
     return make_spatial_mesh(ndev, pp.query_int_list("mesh_shape", None),
                              device)
-
-
-def refuse_unsharded(what: str) -> None:
-    raise NotImplementedError(
-        f"{what} with ndevices>1 is not ported yet ({ITEM_9B})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,8 +208,9 @@ class ShardedDenseState:
 
     def __init__(self, meta: AmrMeta, names: Sequence[str], fabs, mesh: Mesh,
                  halo: Halo, dtype: torch.dtype):
-        if meta.ndim2:
-            refuse_unsharded("a DIM=2 plotfile")
+        if meta.ndim2 and "z" in mesh.axis_names:
+            raise ValueError(f"mesh_shape {mesh.shape} cuts z, which a DIM=2 "
+                             "plotfile does not have: give mesh_shape=a b")
         axes = [SPATIAL_AXES.index(a) for a in mesh.axis_names]
         self.meta, self.names, self.fabs = meta, list(names), fabs
         self.mesh, self.halo, self.dtype = mesh, halo, dtype
@@ -239,10 +235,16 @@ class ShardedDenseState:
             self.plans.append(self._plan(b0, ends))
 
     # -- the partition ---------------------------------------------------------
+    def _ratio(self, lev: int) -> Tuple[int, int, int]:
+        """Per-dim ratio from level lev to lev + 1 (1 along a DIM=2
+        plotfile's z)."""
+        r = self.meta.ref_ratio[lev]
+        return (r, r, 1) if self.meta.ndim2 else (r, r, r)
+
     def _level_block(self, b0: Box, lev: int) -> Box:
         b = b0
-        for r in self.meta.ref_ratio[:lev]:
-            b = b.refine(r)
+        for l in range(lev):
+            b = b.refine(self._ratio(l))
         return b
 
     def _dual_range(self, block: Box, ends, lev: int):
@@ -297,10 +299,11 @@ class ShardedDenseState:
         ``ops/restrict.py`` takes them, start there)."""
         if lev == 0:
             return w
-        r = self.meta.ref_ratio[lev - 1]
-        o = [v % r for v in self.lmeta[lev].bbox.lo]
-        return Box(tuple((w.lo[d] - o[d]) // r * r + o[d] for d in range(3)),
-                   tuple(-(-(w.hi[d] + 1 - o[d]) // r) * r + o[d] - 1
+        r = self._ratio(lev - 1)
+        o = [v % r[d] for d, v in enumerate(self.lmeta[lev].bbox.lo)]
+        return Box(tuple((w.lo[d] - o[d]) // r[d] * r[d] + o[d]
+                         for d in range(3)),
+                   tuple(-(-(w.hi[d] + 1 - o[d]) // r[d]) * r[d] + o[d] - 1
                          for d in range(3)))
 
     def _plan(self, b0: Box, ends) -> ShardPlan:
@@ -317,7 +320,7 @@ class ShardedDenseState:
             if not halo.child or lev == 0 or region[lev - 1] is None:
                 return None
             return _isect(region[lev - 1].grow(1).refine(
-                meta.ref_ratio[lev - 1]).grow(1), self.lmeta[lev].bbox)
+                self._ratio(lev - 1)).grow(1), self.lmeta[lev].bbox)
 
         top = max(lev for lev in range(L)
                   if region[lev] is not None or child(lev) is not None)
@@ -332,7 +335,7 @@ class ShardedDenseState:
                     parts.append(region[lev].grow(halo.cells))
                 if need is not None:
                     parts.append(need.coarsen(
-                        meta.ref_ratio[lev]).grow(halo.reach))
+                        self._ratio(lev)).grow(halo.reach))
                 need = _hull(parts)
                 wins[lev] = None if need is None else self._clip(
                     self._align(need, lev), lev)
@@ -353,15 +356,19 @@ class ShardedDenseState:
 
     def _boxes(self, lev: int, w: Box):
         """(box index, shift, part of the shifted box inside w) of every
-        box of the level or periodic image of one that meets w."""
-        out = []
-        shifts = self._shifts(lev)
-        for i, b in enumerate(self.meta.bas[lev]):
-            for sh in shifts:
-                part = _isect(w, b.shift(sh))
-                if part is not None:
-                    out.append((i, sh, part))
-        return out
+        box of the level or periodic image of one that meets w, by box
+        then shift."""
+        ba = self.meta.bas[lev]
+        lo, hi = ba.lo, ba.hi
+        hits = []
+        for k, sh in enumerate(self._shifts(lev)):
+            ilo = np.maximum(lo + sh, w.lo)
+            ihi = np.minimum(hi + sh, w.hi)
+            for i in np.nonzero((ilo <= ihi).all(axis=1))[0]:
+                hits.append((int(i), k, sh, Box(tuple(int(v) for v in ilo[i]),
+                                                tuple(int(v) for v in ihi[i]))))
+        return [(i, sh, part) for i, _, sh, part in sorted(
+            hits, key=lambda h: h[:2])]
 
     # -- the windows -------------------------------------------------------------
     def __iter__(self):
@@ -389,8 +396,8 @@ class ShardedDenseState:
             if self.cut[d]:
                 lo[d], hi[d] = w0.lo[d], w0.hi[d]
         dom = Box(tuple(lo), tuple(hi))
-        for r in self.meta.ref_ratio[:lev]:
-            dom = dom.refine(r)
+        for l in range(lev):
+            dom = dom.refine(self._ratio(l))
         per = tuple(p and not c for p, c in zip(g.is_periodic, self.cut))
         return WindowGeometry(dom, g.prob_lo, g.prob_hi, per, g.coord_sys,
                               base=g)
@@ -561,13 +568,18 @@ class ShardGather:
                              self.device)
 
 
-def run_windows(sd: ShardedDenseState,
-                fn: Callable[[DenseAmrState], DenseAmrState],
-                device=None) -> ShardGather:
+def run_windows(sd: ShardedDenseState, fn: Callable[..., DenseAmrState],
+                device=None, windows: Optional[list] = None) -> ShardGather:
     """``fn`` on every window, one after another, each output's owned cells
-    gathered (``ShardGather``) before the next window is built."""
+    gathered (``ShardGather``) before the next window is built.
+    ``windows``: the argument of ``fn`` for each shard, built already (the
+    windows a solve kept resident); each entry is dropped once visited."""
     out = ShardGather(sd, device)
-    for s, win in sd:
-        out.add(s, fn(win))
-        del win
+    for s in range(sd.mesh.size):
+        if windows is None:
+            arg = sd.window(s)
+        else:
+            arg, windows[s] = windows[s], None
+        out.add(s, fn(arg))
+        del arg
     return out

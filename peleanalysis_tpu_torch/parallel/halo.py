@@ -1,6 +1,16 @@
-"""The explicit ring halo exchange, and the gradient over shards with it.
+"""Halo exchanges: between resident shard windows, and the explicit ring
+exchange with the gradient over shards.
 
-Counterpart of ``peleanalysis_tpu/parallel/halo.py`` (``shard_map`` +
+``WindowHalo`` is the counterpart of AMReX's ``FillBoundary`` between the
+windows of a ``ShardedDenseState`` (``dense_shard.py``), and of the
+collectives GSPMD inserts into the JAX package's sharded smoothing solve:
+a plan, built once, of the boxes of each window's cells (periodic images
+included) that another shard owns, and ``update``, which copies each box
+from its owner's window with one ``.to(device)``.  The sharded smoothing
+solve (``tools/curvature.py``) calls it inside its operator and once on
+its result.
+
+The ring exchange is the counterpart of ``peleanalysis_tpu/parallel/halo.py`` (``shard_map`` +
 ``ppermute``).  Shards are a list of per-shard ``[C, X, Y, Z]`` tensors,
 each on its own device, in the row-major order of a ``Mesh`` whose axes
 name the spatial dims they cut.  ``halo_exchange`` grows every shard of a
@@ -11,11 +21,9 @@ exchanges one plane along each cut dim, applies the first-order
 extrapolation of the outermost shards (grad.cpp:136-144's default) and
 runs the ``grad_mag`` kernel (``ops/grad_kernels.py``; the plain version on
 CPU tensors) on each grown shard: the global gradient, shard by shard.
-The tools window their shards instead (``dense_shard.py``); this is the
-building block of a halo update between the windows of an iterative
-solve (ROADMAP.md Queue 1 item 9b).  No tool calls this module yet:
-``halo_grad_x`` (the JAX X-slab form), ``split_blocks`` and
-``join_blocks`` serve the tests and ``chip_smoke.py``.
+The tools window their shards instead; ``halo_grad_x`` (the JAX X-slab
+form), ``split_blocks`` and ``join_blocks`` serve the tests and
+``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -24,8 +32,64 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..amr.dense import _box_slices
 from ..ops.grad_kernels import grad_mag
+from .dense_shard import ShardedDenseState, _isect
 from .mesh import Mesh
+
+
+class WindowHalo:
+    """The halo update between the windows of ``sd``, all resident.
+
+    ``copies[lev]`` lists ``(s, t, dst, src)``: the cells of shard s's
+    level-lev window (``dst``, slices of the window) that shard t owns
+    (``src``, slices of t's window), one box a shard t and periodic shift
+    whose box holds a cell of the level's boxes.  Every such cell of every
+    window that its shard does not own is in exactly one box; the boxes
+    may also hold holes of the level, whose values no fill reads."""
+
+    def __init__(self, sd: ShardedDenseState):
+        self.sd = sd
+        self.copies = {}
+        for s, plan in enumerate(sd.plans):
+            for lev in range(plan.n_levels):
+                w = plan.windows[lev]
+                for t, tp in enumerate(sd.plans):
+                    own = tp.owned[lev]
+                    if own is None:
+                        continue
+                    for sh in sd._shifts(lev):
+                        if s == t and not any(sh):
+                            continue
+                        part = _isect(w, own.shift(sh))
+                        if part is None or not sd._boxes(lev, part):
+                            continue
+                        if lev >= tp.n_levels:
+                            raise ValueError(f"shard {t} owns cells of "
+                                             f"level {lev} but has no window "
+                                             "there")
+                        src = part.shift(tuple(-v for v in sh))
+                        self.copies.setdefault(lev, []).append(
+                            (s, t, _box_slices(part, w),
+                             _box_slices(src, tp.windows[lev])))
+
+    def update(self, fields, levels=None) -> None:
+        """In place: ``fields[s][lev]`` (``[C, *window]`` on shard s's
+        device) takes, on every cell shard s does not own, its owner's
+        value, on ``levels`` (default all)."""
+        levels = self.copies if levels is None else levels
+        for lev in levels:
+            for s, t, dst, src in self.copies.get(lev, ()):
+                d = fields[s][lev]
+                d[(slice(None),) + dst] = \
+                    fields[t][lev][(slice(None),) + src].to(d.device)
+
+    def volume(self):
+        """(cells, copies) of one update of every level."""
+        boxes = [dst for copies in self.copies.values()
+                 for _, _, dst, _ in copies]
+        return (sum(int(np.prod([sl.stop - sl.start for sl in dst]))
+                    for dst in boxes), len(boxes))
 
 
 def _planes(t: torch.Tensor, dim: int, sl: slice) -> torch.Tensor:

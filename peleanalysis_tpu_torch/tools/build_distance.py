@@ -14,11 +14,12 @@ import numpy as np
 import torch
 
 from .. import config
-from ..amr.dense import DenseAmrState
+from ..amr.dense import DenseAmrState, _box_slices
 from ..amr.hierarchy import load_plotfile_fabs
-from ..geom.sdf import signed_distance_dense
+from ..geom.sdf import distance_shards, signed_distance_dense
 from ..io.mef import read_mef
 from ..io.plotfile import PlotfileReader
+from ..parallel.dense_shard import ShardedDenseState, ShardGather
 from ..parmparse import ParmParse
 from .grad import refuse_unported
 
@@ -30,6 +31,45 @@ def distance_state(ds: DenseAmrState, tri_verts: np.ndarray, dmax: float,
                                     iso_val, config.compute_dtype)[None]
               for lev in range(ds.meta.n_levels)]
     return ds.with_data(["distance"], levels)
+
+
+def distance_sharded(sd: ShardedDenseState, tri_verts: np.ndarray,
+                     dmax: float, sign_field: str,
+                     iso_val: float = 0.0) -> ShardGather:
+    """``distance_state`` over the shards of ``sd``, gathered: each level's
+    distance on the cells each shard owns (``geom/sdf.distance_shards``),
+    signed where ``sign_field`` < iso_val on its window."""
+    meta = sd.meta
+    phis = []
+    for lev in range(meta.n_levels):
+        geom, bbox = meta.geoms[lev], sd.lmeta[lev].bbox
+        dx = np.array(geom.dx)
+        origin = np.array(geom.prob_lo) + (np.array(bbox.lo)
+                                           - np.array(geom.domain.lo)) * dx
+        blocks = [None if p.owned[lev] is None else (
+            tuple(v - o for v, o in zip(p.owned[lev].lo, bbox.lo)),
+            tuple(v - o for v, o in zip(p.owned[lev].hi, bbox.lo)))
+                  for p in sd.plans]
+        phis.append(distance_shards(tri_verts, origin, dx, bbox.shape,
+                                    blocks, sd.mesh.devices, dmax,
+                                    seed_dtype=config.compute_dtype))
+    out = ShardGather(sd)
+    for s, win in sd:
+        plan = sd.plans[s]
+        data = []
+        for lev in range(plan.n_levels):
+            w, own = plan.windows[lev], plan.owned[lev]
+            d = torch.zeros((1,) + w.shape, dtype=torch.float64,
+                            device=win.device)
+            if own is not None:
+                sl = _box_slices(own, w)
+                f = win.data[lev][win.comp(sign_field)][sl]
+                sgn = torch.where(f < iso_val, -1.0, 1.0).to(torch.float64)
+                d[(0,) + sl] = phis[lev][s] * sgn
+            data.append(d)
+        out.add(s, win.with_data(["distance"], data))
+        del win
+    return out
 
 
 def main(args: dict) -> None:

@@ -40,9 +40,13 @@ the composite solve over the whole hierarchy and keeps the dense path.
 ``ndevices=N``: the dense path runs the chain on N deep-halo windows (two
 fill-and-stencil stages deep: ``parallel/dense_shard.py``) after one global
 progress min/max scan of the host FABs; the clustered path deals its
-clusters over N shards.  ``do_smooth=1`` with ``ndevices>1`` is refused:
-the composite solve is elliptic, so no finite halo makes a window exact
-(ROADMAP.md Queue 1 item 9b).
+clusters over N shards.  With ``do_smooth=1`` every window stays resident
+for the solve (``smooth_windows``): the operator exchanges the halos of
+its average-down (``parallel/halo.py`` ``WindowHalo``), the dots are summed
+over owned cells and across shards (``ops/solve.cg_solve_sharded``), and
+the smoothed field's halo is refreshed before the chain runs window by
+window; the dots' order makes the result differ from one device's by
+rounding (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -53,16 +57,17 @@ import torch
 
 from .. import config
 from ..amr.cluster import clustered
-from ..amr.dense import DenseAmrState, _np_dtype, covered_mask_over
+from ..amr.dense import (DenseAmrState, _box_slices, _np_dtype,
+                         covered_mask_over)
 from ..ops.dense_fill import fill_dense_arrays, fill_dense_multilevel
 from ..ops.grad_kernels import grad_mag
 from ..ops.restrict import average_down_all
-from ..ops.solve import cg_solve, cg_solve_composite
+from ..ops.solve import cg_solve, cg_solve_composite, cg_solve_sharded
 from ..ops.stencil import laplacian
 from ..parallel.cluster_shard import cluster_mesh
 from ..parallel.dense_shard import (CURVATURE_STAGES, ShardedDenseState,
-                                    mesh_from_pp, refuse_unsharded,
-                                    stencil_halo)
+                                    mesh_from_pp, stencil_halo)
+from ..parallel.halo import WindowHalo
 from ..parmparse import ParmParse
 from ..session import (dense_state, get_session, load_state,
                        stage_write_plotfile, var_names)
@@ -135,6 +140,111 @@ def _smooth(meta, lmeta, prog, mask_list, valid_masks, covered_masks, bc,
     return smoothed
 
 
+def _averaged_down(wins, halo: WindowHalo, covered, xs):
+    """Each window's levels ``xs[s]`` averaged down (exact on the owned
+    cells, whose children the shard owns), then every other cell taken
+    from its owner: a covered coarse cell in a halo may have fine children
+    outside the window's fine level."""
+    out = []
+    for s, w in enumerate(wins):
+        xd = average_down_all(w.meta, w.lmeta, xs[s], covered[s])
+        # the finest level is the input itself: update a copy
+        out.append(xd[:-1] + [xd[-1].clone()])
+    halo.update(out)
+    return out
+
+
+def smooth_windows(sd: ShardedDenseState, wins, progress_name, prog_min,
+                   prog_max, smooth_composite=True, smooth_time=1.0e-7,
+                   smooth_iters=50, smooth_rtol=1.0e-10, sym_dir=None,
+                   interp="linear", **_):
+    """``_smooth`` over every window of ``sd`` (``wins``, all built and
+    resident): the smoothed progress of each window, exact on its whole
+    window, for ``compute_curvature_dense``'s ``smoothed=``.  The operator
+    reads the search direction beyond the owned cells: the composite one
+    takes the halo of its average-down from the owners (a covered coarse
+    cell in a halo may have fine children outside the fine window), the
+    per-level one that of the level it solves; the result's halo is
+    refreshed from the owners."""
+    bc = grad_bc([False] * D, sym_dir)
+    halo = WindowHalo(sd)
+    prog = [_progress(w.data, w.comp(progress_name),
+                      torch.full((), prog_min, dtype=w.dtype,
+                                 device=w.device),
+                      torch.full((), prog_max, dtype=w.dtype,
+                                 device=w.device)) for w in wins]
+    # the cells each shard owns
+    owned = [[torch.from_numpy(
+        sd._inside(plan.owned[l], plan.windows[l])
+        if plan.owned[l] is not None
+        else np.zeros(plan.windows[l].shape, bool)).to(w.device)[None]
+              for l in range(plan.n_levels)]
+             for plan, w in zip(sd.plans, wins)]
+    n = len(wins)
+    dt = prog[0][0].dtype
+    masks = [[w.in_level_mask(l) for l in range(w.meta.n_levels)]
+             for w in wins]
+    if smooth_composite:
+        valid = [[w.valid_mask(l)[None] for l in range(w.meta.n_levels)]
+                 for w in wins]
+        covered = [[w.covered_mask(l) for l in range(w.meta.n_levels)]
+                   for w in wins]
+        weights = [[(v & o).to(dt) * w.meta.geoms[l].cell_volume()
+                    for l, (v, o) in enumerate(zip(valid[s], owned[s]))]
+                   for s, w in enumerate(wins)]
+
+        def apply_A(xs):
+            xd = _averaged_down(wins, halo, covered, xs)
+            out = []
+            for s, w in enumerate(wins):
+                grown = fill_dense_multilevel(w.meta, w.lmeta, xd[s],
+                                              masks[s], 1, bc, interp)
+                out.append([xd[s][l] - smooth_time * laplacian(
+                    grown[l], w.meta.geoms[l].dx, 1)
+                            for l in range(w.meta.n_levels)])
+            return out
+
+        x = cg_solve_sharded(apply_A, prog, prog, valid, weights,
+                             smooth_iters, smooth_rtol)
+        return _averaged_down(wins, halo, covered, x)
+    smoothed = [list(p) for p in prog]
+    for lev in range(max(w.meta.n_levels for w in wins)):
+        part = [s for s in range(n) if wins[s].meta.n_levels > lev]
+        fields = [[None] * (lev + 1) for _ in range(n)]
+
+        def apply_A(xs, lev=lev, part=part, fields=fields):
+            for i, s in enumerate(part):
+                fields[s][lev] = xs[i][0].clone()
+            halo.update(fields, (lev,))
+            out = []
+            for s in part:
+                w = wins[s]
+                flds = smoothed[s][:lev] + [fields[s][lev]] \
+                    + prog[s][lev + 1:]
+                grown = fill_dense_arrays(w.meta, w.lmeta, flds, masks[s],
+                                          lev, 1, bc, interp)
+                out.append([fields[s][lev] - smooth_time * laplacian(
+                    grown, w.meta.geoms[lev].dx, 1)])
+            return out
+
+        b = [[prog[s][lev]] for s in part]
+        x = cg_solve_sharded(
+            apply_A, b, b, [[masks[s][lev][None]] for s in part],
+            [[(masks[s][lev][None] & owned[s][lev]).to(dt)] for s in part],
+            smooth_iters, smooth_rtol)
+        for i, s in enumerate(part):
+            smoothed[s][lev] = x[i][0].clone()
+        halo.update(smoothed, (lev,))
+    return smoothed
+
+
+def _progress(data_list, ic, pmin, pmax):
+    """The progress variable (s - pmin) / (pmax - pmin) of component ic,
+    per level."""
+    inv = 1.0 / (pmax - pmin)
+    return [(d[ic: ic + 1] - pmin) * inv for d in data_list]
+
+
 def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_smooth,
                    smooth_composite, smooth_time, smooth_iters, smooth_rtol,
                    do_gauss, do_strain, get_strain_tensor, do_velnormal,
@@ -145,18 +255,17 @@ def _make_pipeline(meta, lmeta, ic, iv, bc, interp, do_smooth,
     L = meta.n_levels
 
     def pipeline(data_list, mask_list, pmin, pmax, valid_masks=None,
-                 covered_masks=None):
+                 covered_masks=None, smoothed=None):
         def grads(fields, with_mag=False):
             return _grad_multilevel(meta, lmeta, fields, mask_list, bc,
                                     interp, with_mag)
 
-        scal = [d[ic: ic + 1] for d in data_list]
-        inv = 1.0 / (pmax - pmin)
-        prog = [(s - pmin) * inv for s in scal]
-        smoothed = (_smooth(meta, lmeta, prog, mask_list, valid_masks,
-                            covered_masks, bc, interp, smooth_composite,
-                            smooth_time, smooth_iters, smooth_rtol)
-                    if do_smooth else prog)
+        prog = _progress(data_list, ic, pmin, pmax)
+        if smoothed is None:
+            smoothed = (_smooth(meta, lmeta, prog, mask_list, valid_masks,
+                                covered_masks, bc, interp, smooth_composite,
+                                smooth_time, smooth_iters, smooth_rtol)
+                        if do_smooth else prog)
 
         # -- gradient of the progress variable, with its magnitude -----------
         gm = grads(smoothed, with_mag=True)
@@ -269,7 +378,11 @@ def compute_curvature_dense(
     replicate_strain_bug: bool = False,
     sym_dir: Optional[Sequence[int]] = None,
     interp: str = "linear",
+    smoothed: Optional[list] = None,
 ) -> DenseAmrState:
+    """The curvature chain of ``dstate``.  ``smoothed``: the smoothed
+    progress per level, solved already (a shard window's, from
+    ``smooth_windows``); do_smooth's solve is then skipped."""
     meta = dstate.meta
     bc = grad_bc([False] * D, sym_dir)
     ic = dstate.comp(progress_name)
@@ -303,13 +416,13 @@ def compute_curvature_dense(
         replicate_strain_bug)
     dt, dev = dstate.dtype, dstate.device
     valid = covered = None
-    if do_smooth:
+    if do_smooth and smoothed is None:
         valid = [dstate.valid_mask(l)[None] for l in range(meta.n_levels)]
         covered = [dstate.covered_mask(l) for l in range(meta.n_levels)]
     out_levels = pipeline(list(dstate.data), masks,
                           torch.full((), prog_min, dtype=dt, device=dev),
                           torch.full((), prog_max, dtype=dt, device=dev),
-                          valid, covered)
+                          valid, covered, smoothed)
     names = _output_names(progress_name, vel_names, need_vel, do_gauss,
                           do_strain, get_strain_tensor, do_velnormal)
     return dstate.with_data(names, out_levels)
@@ -345,7 +458,7 @@ def main(args: dict) -> None:
     [do_velnormal=0] [threshold_prog=0] [threshold=1e-4]
     [replicate_strain_bug=0] [is_per=0 0 0] [sym_dir=0 0 0]
     [cf_interp=quadratic] [finestLevel=] [force_dense=0] [cluster_batch=0]
-    [ndevices=1 [mesh_shape=a b [c]]  (not with do_smooth=1)]
+    [ndevices=1 [mesh_shape=a b [c]]]
     [outfile=...] [device=cuda|cpu]"""
     pp = ParmParse(args)
     infile = pp.get_str("infile")
@@ -372,8 +485,6 @@ def main(args: dict) -> None:
     refuse_unported(pp)
     do_smooth = pp.query_bool("do_smooth", False)
     ndev = pp.query_int("ndevices", 1)
-    if do_smooth and ndev > 1:
-        refuse_unsharded("do_smooth=1")
     kwargs = dict(
         prog_min=pp.query_float("progMin", None),
         prog_max=pp.query_float("progMax", None),
@@ -456,8 +567,11 @@ def _global_bounds(kw: dict, meta, fabs, ic: int) -> None:
             or kw["prog_max"] is None):
         los, his = [], []
         for lev in range(meta.n_levels):
+            # one mask a level: a box's own would scan every finer box
+            bbox = meta.bas[lev].minimal_box()
+            cov = covered_mask_over(meta, lev, bbox)
             for b, fab in zip(meta.bas[lev], fabs[lev]):
-                v = fab[ic][~covered_mask_over(meta, lev, b)]
+                v = fab[ic][~cov[_box_slices(b, bbox)]]
                 if v.size:
                     los.append(v.min())
                     his.append(v.max())
@@ -475,15 +589,27 @@ def curvature_sharded(args, src, mesh, progress_name, aux_names, outfile,
                       **kw) -> bool:
     """The dense curvature on the windows of ``mesh``: the progress
     bounds from one global scan, then the chain window by window, its
-    owned cells gathered (``grad.write_sharded``)."""
+    owned cells gathered (``grad.write_sharded``).  With do_smooth every
+    window is built first and the smoothing solved over all of them
+    (``smooth_windows``)."""
     meta = src.meta
     dt = config.compute_dtype
     _global_bounds(kw, meta, src.fabs, src.names.index(progress_name))
     sd = ShardedDenseState(meta, src.names, src.fabs, mesh,
                            stencil_halo(CURVATURE_STAGES, kw["interp"]), dt)
-    return write_sharded(args, sd, lambda w: _with_aux(
-        compute_curvature_dense(w, progress_name, **kw), w, aux_names,
-        range(w.meta.n_levels)), outfile)
+
+    def chain(arg):
+        w, sm = arg
+        return _with_aux(compute_curvature_dense(w, progress_name,
+                                                 smoothed=sm, **kw),
+                         w, aux_names, range(w.meta.n_levels))
+
+    if not kw["do_smooth"]:
+        return write_sharded(args, sd, lambda w: chain((w, None)), outfile)
+    wins = [sd.window(s) for s in range(mesh.size)]
+    sm = smooth_windows(sd, wins, progress_name, **kw)
+    return write_sharded(args, sd, chain, outfile,
+                         windows=list(zip(wins, sm)))
 
 
 def curvature_clustered(meta, names, fabs, device, progress_name, aux_names,

@@ -171,17 +171,19 @@ def main(args: dict) -> None:
 
 
 def write_sharded(args: dict, sd: ShardedDenseState, fn,
-                  outfile: str) -> bool:
+                  outfile: str, windows=None) -> bool:
     """The plotfile of a stencil tool over shard windows: ``fn`` on each
-    window, its owned cells gathered into the file (``ShardGather``).  In a
-    session the output is gathered into one state on the first shard's
-    device instead and registered for later stages.  Returns whether a
-    write was issued."""
+    window (or on each entry of ``windows``, ``run_windows``), its owned
+    cells gathered into the file (``ShardGather``).  In a session the
+    output is gathered into one state on the first shard's device instead
+    and registered for later stages.  Returns whether a write was
+    issued."""
     sess = get_session(args)
     if sess is None:
-        run_windows(sd, fn).write(outfile)
+        run_windows(sd, fn, windows=windows).write(outfile)
         return True
-    out = run_windows(sd, fn, device=sd.mesh.devices[0]).state()
+    out = run_windows(sd, fn, device=sd.mesh.devices[0],
+                      windows=windows).state()
     sess.put_plotfile(outfile, out)
     return stage_write_plotfile(args, out, outfile)
 

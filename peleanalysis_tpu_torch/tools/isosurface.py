@@ -17,10 +17,13 @@ dense 3-D path only).
 
 ``ndevices=N`` (JAX :75-80, :93-99): the dense path extracts over N
 deep-halo windows (``parallel/dense_shard.py``), each emitting the
-triangles of the dual cells its shard owns, merged by global node key into
-the one-device run's MEF; the clustered path deals its clusters over N
-shards.  Not with DIM=2 plotfiles or ``build_distance_function=1``
-(ROADMAP.md Queue 1 item 9b).
+triangles (DIM=2: the segments, ``extract_isolines_windows``) of the dual
+cells its shard owns, merged by global node key into the one-device run's
+MEF; the clustered path deals its clusters over N shards.  With
+``build_distance_function=1`` each shard computes the distance on the
+cells it owns, the sweeps walking every direction's planes across the
+shards in the one-device order (``tools/build_distance.distance_sharded``
+over ``geom/sdf.distance_shards``).
 """
 from __future__ import annotations
 
@@ -34,18 +37,19 @@ from ..amr.dense import DenseAmrState
 from ..geom.marching_cubes import (check_engine, extract_isosurface,
                                    extract_isosurface_sparse,
                                    extract_isosurface_windows, surface_area)
-from ..geom.marching_squares import extract_isolines
+from ..geom.marching_squares import (extract_isolines,
+                                     extract_isolines_windows)
 from ..geom.mef_tools import assemble_polylines
 from ..io.mef import write_mef, write_mef_tecplot
 from ..io.xdmf import write_xdmf
 from ..native import savetxt_fast
 from ..parallel.cluster_shard import cluster_mesh
 from ..parallel.dense_shard import (ISO_HALO, ShardedDenseState,
-                                    mesh_from_pp, refuse_unsharded)
+                                    mesh_from_pp)
 from ..parmparse import ParmParse
 from ..session import (dense_state, get_session, load_state, stage_submit_io,
                        stage_writes, var_names)
-from .build_distance import distance_state
+from .build_distance import distance_sharded, distance_state
 from .grad import refuse_unported
 
 
@@ -92,10 +96,7 @@ def main(args: dict) -> None:
     meta = src.meta
     fin = meta.n_levels - 1
     ndev = pp.query_int("ndevices", 1)
-    if ndev > 1 and meta.ndim2:
-        refuse_unsharded("a DIM=2 plotfile")
-    if ndev > 1 and pp.query_bool("build_distance_function", False):
-        refuse_unsharded("build_distance_function=1")
+    sd = None
     sparse = not meta.ndim2 and clustered(
         meta, pp, [fin], force=pp.query_bool("surface_is_large", False))
     label = f"{meta.time:g}"
@@ -114,8 +115,12 @@ def main(args: dict) -> None:
                                mesh_from_pp(pp, ndev, device), ISO_HALO,
                                torch.float64)
         t1 = time.perf_counter()
-        mef = extract_isosurface_windows(sd, iso_name, iso_val, extras,
-                                         label=label)
+        if meta.ndim2:
+            mef = extract_isolines_windows(sd, iso_name, iso_val, extras,
+                                           label=label)
+        else:
+            mef = extract_isosurface_windows(sd, iso_name, iso_val, extras,
+                                             label=label)
     else:
         ds = dense_state(args, src, device, torch.float64)
         t1 = time.perf_counter()
@@ -170,13 +175,17 @@ def main(args: dict) -> None:
                 "clustered path yet; pass force_dense=1 to accept the "
                 "union-bbox footprint")
         dmax = pp.query_float("dmax", 4.0 * meta.geoms[fin].dx[0])
-        dist = distance_state(ds, mef.positions()[mef.elements], dmax,
-                              iso_name, iso_val)
+        tri = mef.positions()[mef.elements]
         # the reference names the distance plotfile with `outfile`
         # (isosurface.cpp:1734); dist_outfile is the explicit alias
         dist_file = pp.query_str(
             "dist_outfile", pp.query_str("outfile", infile + "_dist"))
-        dist.to_plotfile(dist_file)
+        if sd is not None:
+            distance_sharded(sd, tri, dmax, iso_name, iso_val).write(
+                dist_file)
+        else:
+            distance_state(ds, tri, dmax, iso_name, iso_val).to_plotfile(
+                dist_file)
         print(f"wrote {dist_file}")
     if verbose:
         print(f"isosurface: read {t1 - t0:.3f} s, extract {t2 - t1:.3f} s, "

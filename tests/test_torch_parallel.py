@@ -2,8 +2,8 @@
 exchange and the sharded gradient (held to the JAX package's ``halo.py``
 on its eight virtual host devices, 1e-12 in float64), the window
 partition (no shard holds a whole level; the halo each tool derives is
-needed and enough, bitwise), the cluster dealing, and the refusals of
-what the slice leaves out (ROADMAP.md Queue 1 item 9b)."""
+needed and enough, bitwise; a DIM=2 hierarchy cut along x and y only), the
+cluster dealing, and the refusal of a DIM=2 mesh that cuts z."""
 import dataclasses
 
 import numpy as np
@@ -18,7 +18,7 @@ from peleanalysis_tpu.parallel.halo import halo_grad_x as jax_halo_grad_x
 from peleanalysis_tpu_torch import cli
 from peleanalysis_tpu_torch import config as port_config
 from peleanalysis_tpu_torch.amr.dense import DenseAmrState
-from peleanalysis_tpu_torch.amr.hierarchy import AmrMeta
+from peleanalysis_tpu_torch.amr.hierarchy import AmrMeta, load_plotfile_fabs
 from peleanalysis_tpu_torch.geom.marching_cubes import (
     extract_isosurface_enum, extract_isosurface_windows)
 from peleanalysis_tpu_torch.parallel.cluster_shard import (cluster_mesh,
@@ -185,38 +185,39 @@ def test_no_shard_holds_a_whole_level(halo, frac, shape):
             assert w.size < sd.lmeta[lev].bbox.size
 
 
-@pytest.fixture(scope="module")
-def small_plotfile(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("pltpar") / "plt")
-    write_synthetic_plotfile(path, n_cell=16, n_levels=2, max_grid_size=8)
-    return path
-
-
 @pytest.fixture(autouse=True)
 def _keep_dtype(monkeypatch):
     monkeypatch.setattr(port_config, "compute_dtype",
                         port_config.compute_dtype)
 
 
-@pytest.mark.parametrize("argv", [
-    ["curvature", "do_smooth=1"],
-    ["isosurface", "build_distance_function=1"]])
-def test_refusals_name_item_9b(small_plotfile, tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        cli.main([argv[0], f"infile={small_plotfile}", *argv[1:],
-                  "ndevices=2", "device=cpu",
-                  f"outfile={tmp_path / 'o'}",
-                  f"outfile_base={tmp_path / 'o'}"])
-
-
-def test_dim2_refused(tmp_path):
+def test_dim2_mesh_with_z_refused(tmp_path):
     path = str(tmp_path / "plt2d")
     write_synthetic_plotfile(path, n_cell=16, n_levels=2, ndim=2)
     for tool in ("grad", "curvature", "isosurface"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            cli.main([tool, f"infile={path}", "ndevices=2", "device=cpu",
+        with pytest.raises(ValueError, match="cuts z"):
+            cli.main([tool, f"infile={path}", "ndevices=4",
+                      "mesh_shape=2 1 2", "device=cpu",
                       f"outfile={tmp_path / 'o'}",
                       f"outfile_base={tmp_path / 'o'}"])
+
+
+@pytest.mark.parametrize("shape", [None, (2, 2)])
+def test_dim2_windows_keep_z(tmp_path, shape):
+    """A DIM=2 hierarchy (nz=1 at every level) is cut along x and y only:
+    every window level keeps the z extent of 1, and no window spans a
+    level's bbox."""
+    path = str(tmp_path / "plt2d")
+    write_synthetic_plotfile(path, n_cell=32, n_levels=3, max_grid_size=16,
+                             ndim=2)
+    meta = load_plotfile_fabs(path)[0]
+    sd = ShardedDenseState(meta, ["temp"], None,
+                           make_spatial_mesh(4, shape, "cpu"),
+                           stencil_halo(CURVATURE_STAGES, "quadratic"), F64)
+    for plan in sd.plans:
+        for lev, w in enumerate(plan.windows):
+            assert (w.lo[2], w.hi[2]) == (0, 0)
+            assert w.size < sd.lmeta[lev].bbox.size
 
 
 def test_windows_live_on_their_shards_devices():

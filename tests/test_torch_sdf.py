@@ -10,7 +10,8 @@ centres against a JAX process with x64 off within 4 float32 ulps; the
 ids equal but at near ties, where XLA's fused jit rounds a distance an
 ulp apart from the eager ops (under 1% of the cells, each held to a tie
 within the same tolerance); the tie rule exact on duplicate triangles.
-From equal seeds the sweeps, grids and plotfiles: ``|phi|`` within 1e-6
+Over shards (``distance_shards``) the grid's |phi| bitwise, ties and near
+ties included.  From equal seeds the sweeps, grids and plotfiles: ``|phi|`` within 1e-6
 * dmax (1e-12 for the bare sweeps, the ids equal) and the sign equal
 wherever ``|phi| > 1e-6 * dx``.  The whole pipelines, each seeding on its
 own: a near tie can carry another id through the sweeps, so under 2% of
@@ -171,6 +172,40 @@ def test_band_seed_tie_rule():
     assert ((cl.numpy() == 0) | (cl.numpy() == -1)).all()
     np.testing.assert_array_equal(cl.numpy(), want_cl)
     np.testing.assert_allclose(phi.numpy(), want_phi, rtol=1e-12, atol=0)
+
+
+def _split(shape, cuts):
+    """Blocks (lo, hi) of a grid cut into cuts[d] near-equal parts along
+    each dim."""
+    edges = [np.linspace(0, n, c + 1).round().astype(int)
+             for n, c in zip(shape, cuts)]
+    out = []
+    for i in np.ndindex(*cuts):
+        out.append((tuple(int(edges[d][i[d]]) for d in range(3)),
+                    tuple(int(edges[d][i[d] + 1]) - 1 for d in range(3))))
+    return out
+
+
+@pytest.mark.parametrize("case", ["duplicates", "sphere"])
+@pytest.mark.parametrize("seed_dtype", [torch.float32, torch.float64])
+def test_distance_shards_equal_whole_grid(case, seed_dtype):
+    """``distance_shards`` over 3 X slabs and 2 x 2 x 2 blocks equals the
+    whole grid's |phi| bitwise: exact ties (two copies of each triangle:
+    the first wins) and the sphere's near ties."""
+    tri, origin, dx, shape = _sphere_grid(20)
+    if case == "duplicates":
+        tri = np.concatenate([tri[:40], tri[:40]])
+    dmax = 3 * dx[0]
+    want, _ = sdf.unsigned_distance_grid(tri, origin, dx, shape, dmax,
+                                         seed_dtype=seed_dtype)
+    for cuts in ((3, 1, 1), (2, 2, 2)):
+        blocks = _split(shape, cuts)
+        got = sdf.distance_shards(tri, origin, dx, shape, blocks,
+                                  ["cpu"] * len(blocks), dmax,
+                                  seed_dtype=seed_dtype)
+        for (lo, hi), phi in zip(blocks, got):
+            sl = tuple(slice(a, b + 1) for a, b in zip(lo, hi))
+            assert torch.equal(phi, want[sl]), cuts
 
 
 @pytest.fixture

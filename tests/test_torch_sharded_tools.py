@@ -3,13 +3,16 @@ on the CPU (N shards on the CPU): every output file byte for byte the
 ``ndevices=1`` run's, for N in {2, 3, 8} (3 divides no extent), X slabs
 and ``mesh_shape=4 2`` / ``2 2 2`` blocks, periodic and reflecting
 boundaries, a fine level of X extent 18 (``tests/test_halo.py``'s
-``odd_state``), the sparse path with boundary and periodic clusters, and a
-pipeline with a sharded stage; and each tool's ``ndevices=8`` CLI run
+``odd_state``), the sparse path with boundary and periodic clusters, a
+pipeline with a sharded stage, DIM=2 plotfiles (grad, curvature, the
+iso-lines) and the isosurface's distance plotfile
+(``build_distance_function=1``); and each tool's ``ndevices=8`` CLI run
 against the JAX tool's within the JAX tests' tolerances."""
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from peleanalysis_tpu_torch import cli
 from peleanalysis_tpu_torch import config as port_config
@@ -116,6 +119,65 @@ def test_sharded_boundaries(plotfiles, tool, case):
         assert run(tool, plt, layout, f"n{i}", extra) == ref, layout
 
 
+FIELDS_2D = {
+    "temp": lambda x, y: 1000 + 500 * np.sin(2 * np.pi * x + 0.3)
+    * np.cos(2 * np.pi * y - 0.2),
+    "density": lambda x, y: x + 2 * y,
+    "x_velocity": lambda x, y: 1.0 + 0.3 * np.sin(2 * np.pi * y),
+    "y_velocity": lambda x, y: 0.5 * np.cos(2 * np.pi * x) + 0.2,
+}
+
+
+@pytest.fixture(scope="module")
+def plotfiles_2d(tmp_path_factory):
+    """DIM=2: three levels over 16^2, and two periodic levels whose level
+    1 spans the domain."""
+    d = tmp_path_factory.mktemp("pltsh2d")
+    out = {"plain": str(d / "plt"), "periodic": str(d / "pltper")}
+    write_synthetic_plotfile(out["plain"], n_cell=16, n_levels=3,
+                             max_grid_size=8, fields=FIELDS_2D, ndim=2)
+    write_synthetic_plotfile(out["periodic"], n_cell=16, n_levels=2,
+                             max_grid_size=8, fields=FIELDS_2D, ndim=2,
+                             is_periodic=(True, True), refine_frac=1.0)
+    return out
+
+
+@pytest.mark.parametrize("tool", ["grad", "curvature", "isosurface"])
+@pytest.mark.parametrize("case", ["plain", "periodic"])
+def test_dim2_sharded_equals_one_device(plotfiles_2d, tool, case):
+    extra = ["is_per=1 1 0"] if case == "periodic" else []
+    if tool == "curvature":
+        extra.append("do_velnormal=1")
+    ref = run(tool, plotfiles_2d[case], "ndevices=1", "ref", extra)
+    for i, layout in enumerate(["ndevices=2", "ndevices=3",
+                                "ndevices=4 mesh_shape=2 2",
+                                "ndevices=8 mesh_shape=4 2"]):
+        assert run(tool, plotfiles_2d[case], layout, f"n{i}", extra) == ref, \
+            layout
+
+
+def test_sharded_distance_equals_one_device(plotfiles):
+    """isosurface build_distance_function=1: the distance plotfile byte
+    for byte, the sweeps walking their planes across the shards (one
+    intra-op thread, as ``test_torch_sdf.py`` runs the sweeps: ~170 small
+    ops a plane)."""
+    keys = ["isoVal=1000", "build_distance_function=1"]
+
+    def dist(layout, name):
+        run("isosurface", plotfiles["3level"], layout, name,
+            keys + [f"dist_outfile={name}_dist"])
+        return tree_bytes(f"{name}_dist")
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ref = dist("ndevices=1", "ref")
+        for i, layout in enumerate(["ndevices=3",
+                                    "ndevices=4 mesh_shape=2 2"]):
+            assert dist(layout, f"n{i}") == ref, layout
+    finally:
+        torch.set_num_threads(prev)
+
+
 def test_part_stream_sharded(plotfiles):
     def lines(layout, name):
         assert cli.main(["partStream", f"infile={plotfiles['3level']}",
@@ -188,7 +250,7 @@ def jax_inputs(tmp_path_factory):
     isosurface) and ``tests/test_curvature.py``'s 32^3 2-level synthetic
     plotfile (curvature)."""
     d = tmp_path_factory.mktemp("pltshj")
-    out = {"odd": str(d / "odd"), "syn": str(d / "syn")}
+    out = {"odd": str(d / "odd"), "syn": str(d / "syn"), "d2": str(d / "d2")}
     dom0 = Box((0, 0, 0), (15, 15, 15))
     geom0 = Geometry(dom0, (0., 0., 0.), (1., 1., 1.), (False,) * 3)
     geoms = [geom0, geom0.refine(2)]
@@ -198,6 +260,7 @@ def jax_inputs(tmp_path_factory):
             -((x - .5) ** 2 + (y - .5) ** 2 + (z - .5) ** 2) / 0.15 ** 2)})
     write_plotfile(out["odd"], names, 0.0, geoms, [2], bas, data)
     write_synthetic_plotfile(out["syn"], n_cell=32, n_levels=2)
+    write_synthetic_plotfile(out["d2"], n_cell=16, n_levels=2, ndim=2)
     return out
 
 
@@ -208,7 +271,8 @@ def _fabs(path):
 
 
 @pytest.mark.parametrize("verb", ["grad", "grad64", "curvature",
-                                  "isosurface"])
+                                  "isosurface", "grad2d", "curvature2d",
+                                  "isosurface2d"])
 def test_matches_jax_at_8(jax_inputs, verb):
     """The JAX tests' tolerances: grad rtol 5e-6, atol 1e-4
     (``tests/test_halo.py:141-143``, where both sides run the same XLA
@@ -222,7 +286,9 @@ def test_matches_jax_at_8(jax_inputs, verb):
     from peleanalysis_tpu import config as jax_config
     from peleanalysis_tpu.cli import main as jax_cli
     jax_dtype = jax_config.compute_dtype
-    plt = jax_inputs["syn" if verb == "curvature" else "odd"]
+    plt = jax_inputs["d2" if verb.endswith("2d") else
+                     "syn" if verb == "curvature" else "odd"]
+    verb = verb.replace("2d", "")
     keys, out, ext = {
         "grad": (["gradVar=temp"], "outfile", ""),
         "grad64": (["gradVar=temp", "dtype=float64"], "outfile", ""),
@@ -257,3 +323,28 @@ def test_matches_jax_at_8(jax_inputs, verb):
         ok = ~np.isnan(b)
         scale = max(float(np.abs(b[ok]).max(initial=0.0)), 1e-30)
         assert np.abs(a[ok] - b[ok]).max(initial=0.0) / scale < 5e-7
+
+
+def test_distance_matches_jax_at_8(jax_inputs):
+    """isosurface build_distance_function=1 ndevices=8 in float64, each
+    package seeding on its own: ``test_torch_sdf.py``'s end-to-end
+    tolerance (within 1e-6 dmax but at the band's near ties, under 2% of
+    the cells within 0.02 dmax; the sign equal)."""
+    from peleanalysis_tpu import config as jax_config
+    from peleanalysis_tpu.cli import main as jax_cli
+    from tests.test_torch_sdf import close_distance
+    argv = ["isosurface", f"infile={jax_inputs['odd']}", "isoCompName=temp",
+            "isoVal=1000", "build_distance_function=1", "dtype=float64",
+            "ndevices=8"]
+    jax_dtype = jax_config.compute_dtype
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert cli.main(argv + [D, "outfile_base=port",
+                                "dist_outfile=port_dist"]) == 0
+        assert jax_cli(argv + ["outfile_base=jax",
+                               "dist_outfile=jax_dist"]) == 0
+    finally:
+        jax_config.compute_dtype = jax_dtype
+        torch.set_num_threads(prev)
+    close_distance("port_dist", "jax_dist", 4.0 / 32, near=0.02)
