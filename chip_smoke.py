@@ -267,7 +267,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from peleanalysis_tpu_torch import cli, native
+from peleanalysis_tpu_torch import cli, native, telemetry
 from peleanalysis_tpu_torch.amr.cluster import (cluster_boxes,
                                                 cluster_substates,
                                                 coarse_only_state)
@@ -676,14 +676,14 @@ def order_key_times(shape, plo, dx, seeds, dirs) -> dict:
 # -- phase 4 --------------------------------------------------------------------
 def run_tool(tool: str, args, n_levels: int) -> float:
     """One CLI run; checks that every gradient went through the kernel."""
-    before = gk.LAUNCHES
+    before = telemetry.counter("kernel.grad_mag")
     t0 = time.perf_counter()
     rc = cli.main([tool, *args])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
         raise RuntimeError(f"{tool} exited {rc}")
-    launched = gk.LAUNCHES - before
+    launched = telemetry.counter("kernel.grad_mag") - before
     if launched != LAUNCHES_PER_LEVEL[tool] * n_levels:
         raise AssertionError(f"{tool}: {launched} kernel launches, expected "
                              f"{LAUNCHES_PER_LEVEL[tool] * n_levels}")
@@ -752,7 +752,7 @@ def phase_main(tmp: str) -> int:
     reset_counts()
     cold = {"grad": run_tool("grad", grad_args, L),
             "curvature": run_tool("curvature", curv_args, L)}
-    launches = gk.LAUNCHES
+    launches = counts()["grad_mag"]
     if launches != (1 + 7) * L or any(list(counts().values())[1:]):
         raise AssertionError(f"main path launches {counts()}")
     warm = {t: [run_tool(t, a, L) for _ in range(3)]
@@ -782,16 +782,26 @@ def write_seed_mef(path: str, n_theta: int, n_phi: int, extra=()) -> int:
     return n
 
 
+# the kernels' launch counters (``peleanalysis_tpu_torch.telemetry``) under
+# the names counts() reports
+KERNEL_COUNTERS = {"grad_mag": "kernel.grad_mag",
+                   "stream_march": "kernel.march",
+                   "stream_march_order_key": "kernel.order_key",
+                   "stats_binned": "kernel.binned",
+                   "stats_joint": "kernel.joint"}
+_COUNT_BASE: dict = {}
+
+
 def counts() -> dict:
-    return {"grad_mag": gk.LAUNCHES, "stream_march": mk.LAUNCHES,
-            "stream_march_order_key": mk.KEY_LAUNCHES,
-            "stats_binned": sk.BINNED_LAUNCHES,
-            "stats_joint": sk.JOINT_LAUNCHES}
+    """Each kernel's launches since the last reset_counts()."""
+    now = telemetry.counters()
+    return {k: now.get(c, 0) - _COUNT_BASE.get(c, 0)
+            for k, c in KERNEL_COUNTERS.items()}
 
 
 def reset_counts() -> None:
-    gk.LAUNCHES = mk.LAUNCHES = mk.KEY_LAUNCHES = 0
-    sk.BINNED_LAUNCHES = sk.JOINT_LAUNCHES = 0
+    _COUNT_BASE.clear()
+    _COUNT_BASE.update(telemetry.counters())
 
 
 def run_tool_counted(tool: str, args, expect) -> float:
@@ -1344,9 +1354,9 @@ def phase_stream_cpu(stream: dict, dev) -> None:
     # "torch" (the plain version) is refused there
     kw = dict(n_rk_steps=5, h_rk=0.5, trace_field="temp")
     for name in ("auto", "cuda", "pallas", "xla"):
-        n0 = mk.LAUNCHES
+        n0 = telemetry.counter("kernel.march")
         trace_streamlines(card, seeds, march_engine=name, **kw)
-        if mk.LAUNCHES == n0:
+        if telemetry.counter("kernel.march") == n0:
             raise AssertionError(f"march_engine={name}: no kernel launch")
     try:
         trace_streamlines(card, seeds, march_engine="torch", **kw)
@@ -1915,7 +1925,8 @@ def phase_stats_kernel(dev) -> dict:
     cases = []
     # each wrapper call on the card is one counted launch; the plain
     # versions count none
-    before = (sk.BINNED_LAUNCHES, sk.JOINT_LAUNCHES)
+    before = (telemetry.counter("kernel.binned"),
+              telemetry.counter("kernel.joint"))
     calls = [0, 0]
     # 1 M cells, and the production case's 19.4 M flattened: more cells a
     # block than any level of the main path gives a launch (its largest is
@@ -1926,7 +1937,8 @@ def phase_stats_kernel(dev) -> dict:
             fields = stats_fields(n, dtype, dev, seed)
             check_stats_cases(fields, dtype, dev, worst, cases, calls)
             del fields
-    launched = [sk.BINNED_LAUNCHES - before[0], sk.JOINT_LAUNCHES - before[1]]
+    launched = [telemetry.counter("kernel.binned") - before[0],
+                telemetry.counter("kernel.joint") - before[1]]
     if launched != calls:
         raise AssertionError(f"stats kernel launches {launched} for "
                              f"{calls} wrapper calls")

@@ -22,6 +22,7 @@ import torch
 from .box import Box, BoxArray
 from .geometry import Geometry
 from ..io.fab_pack import PackedLevel, fetch_level, level_records, pack_level
+from ..telemetry import count, span
 from .hierarchy import (AmrMeta, _periodic_shifts, load_plotfile_fabs,
                         output_layout, write_level_records)
 
@@ -82,12 +83,24 @@ def _assemble_np(ba: BoxArray, fabs, bbox: Box, np_dtype) -> np.ndarray:
     return out
 
 
+def host_to_device(host: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor on ``device``: one copy (``h2d.bytes``)
+    to a card, none on the CPU."""
+    t = torch.from_numpy(host)
+    with span("assemble.h2d"):
+        out = t.to(device)
+    if out is not t:
+        count("h2d.bytes", host.nbytes)
+    return out
+
+
 def assemble_level(ba: BoxArray, fabs, bbox: Box, dtype: torch.dtype,
                    device) -> torch.Tensor:
     """One level's boxes over ``bbox``, assembled on the host in ``dtype``
     and copied to ``device`` once."""
-    return torch.from_numpy(_assemble_np(ba, fabs, bbox,
-                                         _np_dtype(dtype))).to(device)
+    with span("assemble.host"):
+        host = _assemble_np(ba, fabs, bbox, _np_dtype(dtype))
+    return host_to_device(host, device)
 
 
 class DenseAmrState:
@@ -171,7 +184,7 @@ class DenseAmrState:
                 raise ValueError(f"level {lev} array shape {arr.shape} != "
                                  f"{want}")
             host = np.array(arr, dtype=_np_dtype(dtype))   # own, writable
-            data.append(torch.from_numpy(host).to(device))
+            data.append(host_to_device(host, device))
         return cls(meta, names, data, lmeta, device)
 
     # -- masks ---------------------------------------------------------------
@@ -212,7 +225,7 @@ class DenseAmrState:
         key = (kind, lev)
         if key not in self._masks:
             host = getattr(self, f"{kind}_mask_np")(lev)
-            self._masks[key] = torch.from_numpy(host).to(self.device)
+            self._masks[key] = host_to_device(host, self.device)
         return self._masks[key]
 
     def in_level_mask(self, lev: int) -> torch.Tensor:

@@ -18,6 +18,7 @@ from .box import Box, BoxArray
 from .geometry import Geometry
 from ..io.plotfile import (PlotfileReader, promote_2d, write_plotfile,
                            write_plotfile_records)
+from ..telemetry import count, span
 
 
 @dataclasses.dataclass
@@ -47,15 +48,19 @@ def load_plotfile_fabs(path: str, names: Optional[Sequence[str]] = None,
                        is_periodic: Optional[Sequence[bool]] = None):
     """Read a plotfile into ``(meta, names, level_fabs)``, where
     ``level_fabs[lev][i]`` is box i's float64 ``[ncomp, *box.shape]``.
-    DIM=2 plotfiles are promoted to 3-D with nz=1."""
-    r = PlotfileReader(path)
-    m = r.meta
-    finest = m.finest_level if max_level is None else min(max_level,
-                                                          m.finest_level)
-    names = list(names) if names is not None else list(m.var_names)
-    comps = [r.var_index(n) for n in names]
-    bas = [r.box_array(lev) for lev in range(finest + 1)]
-    fabs = [r.read_level(lev, comps) for lev in range(finest + 1)]
+    DIM=2 plotfiles are promoted to 3-D with nz=1.  Counts the FABs'
+    bytes (``read.bytes``) and the plotfile (``read.plotfiles``)."""
+    with span("read.plotfile"):
+        r = PlotfileReader(path)
+        m = r.meta
+        finest = m.finest_level if max_level is None else min(
+            max_level, m.finest_level)
+        names = list(names) if names is not None else list(m.var_names)
+        comps = [r.var_index(n) for n in names]
+        bas = [r.box_array(lev) for lev in range(finest + 1)]
+        fabs = [r.read_level(lev, comps) for lev in range(finest + 1)]
+    count("read.plotfiles")
+    count("read.bytes", sum(f.nbytes for level in fabs for f in level))
     if m.ndim == 2:
         geoms, bas, fabs = promote_2d(m, bas, fabs)
         if is_periodic is not None:

@@ -47,6 +47,7 @@ import torch
 
 from . import config
 from .parmparse import _ACTIVE, parse_argv
+from .telemetry import request, span
 
 # tool name -> module (each exposes main(args: dict))
 TOOLS = {
@@ -144,7 +145,8 @@ def main(argv=None, session=None) -> int:
     if prof_dir:
         _profiled(mod.main, args, prof_dir, tool)
     else:
-        mod.main(args)
+        with span("tool." + tool):
+            mod.main(args)
     # the reference silently ignores unknown ParmParse keys; a typo'd key
     # costs real debugging time, so warn (stderr, non-fatal)
     touched = set().union(*(pp.touched for pp in _ACTIVE)) if _ACTIVE else set()
@@ -178,21 +180,23 @@ def _pipeline(tokens, session=None) -> int:
               "-- <tool> k=v ...)")
         return 2
     rc = 0
-    try:
-        for stage in stages:
-            # a stage may read a path an earlier stage is still writing
-            sess.flush_writes(match=stage)
-            rc = main(stage, session=sess)
-            if rc != 0:
-                break
-    finally:
-        # files on disk when the pipeline returns; a failing STAGE's rc (or
-        # exception) outranks a failing write-back
+    with request(), span("pipeline"):
         try:
-            sess.flush_writes()
-        except Exception as e:
-            print(f"pipeline: pending write failed: {e}", file=sys.stderr)
-            rc = rc or 1
+            for stage in stages:
+                # a stage may read a path an earlier stage is still writing
+                sess.flush_writes(match=stage)
+                rc = main(stage, session=sess)
+                if rc != 0:
+                    break
+        finally:
+            # files on disk when the pipeline returns; a failing STAGE's rc
+            # (or exception) outranks a failing write-back
+            try:
+                sess.flush_writes()
+            except Exception as e:
+                print(f"pipeline: pending write failed: {e}",
+                      file=sys.stderr)
+                rc = rc or 1
     return rc
 
 
@@ -205,7 +209,7 @@ def _profiled(fn, args, prof_dir: str, tool: str) -> None:
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(prof_dir, exist_ok=True)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, span("tool." + tool):
         fn(args)
     path = os.path.join(prof_dir, f"{tool}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)

@@ -52,6 +52,7 @@ from ..io.mef import MEF
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.fill import default_bc
 from ..parallel.cluster_shard import sharded_substates
+from ..telemetry import count, span
 from .mc_tables import CORNER_OFFSETS, CORNER_PAIRS, EDGE_TABLE, TRI_TABLE
 
 _LEV_SHIFT = 54
@@ -356,9 +357,17 @@ def _unravel(flat: torch.Tensor, shape):
 
 # -- the engine ---------------------------------------------------------------
 def _stage(name: str):
-    """A profiler range named ``isosurface.<name>`` around one stage of the
-    engine (fill, classify, masks, cumsum, compact, gather, copy)."""
-    return torch.profiler.record_function("isosurface." + name)
+    """The span ``isosurface.<name>`` (a profiler range under a profiler)
+    around one stage of the engine (fill, classify, masks, cumsum, compact,
+    gather, copy)."""
+    return span("isosurface." + name)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a host array; a copy from a card counts in ``d2h.bytes``."""
+    if t.device.type != "cpu":
+        count("d2h.bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()
 
 
 def _node_keys(lev: int, a: int, cA, gbox_lo) -> torch.Tensor:
@@ -632,11 +641,11 @@ def extract_isosurface_enum(dstate: DenseAmrState, iso_name: str,
                                        for lev in range(L)),
                                    int(elements.shape[0])))
     with _stage("copy"):
-        nodes = torch.cat(node_rows).cpu().numpy()
-        elements = elements.cpu().numpy()
-        keys = torch.cat(node_keys).cpu().numpy() if node_keys else None
+        nodes = _to_host(torch.cat(node_rows))
+        elements = _to_host(elements)
+        keys = _to_host(torch.cat(node_keys)) if node_keys else None
         if win is not None:
-            cells = (torch.cat(tri_cells)[torch.cat(tri_valid)].cpu().numpy()
+            cells = (_to_host(torch.cat(tri_cells)[torch.cat(tri_valid)])
                      if tri_cells else np.zeros(0, np.int64))
     mef = MEF(label or "0", out_names, nodes.astype(np.float64),
               elements.astype(np.int32))
@@ -669,15 +678,14 @@ class DeferredSurface:
             return self._mef.positions()
         if self._xyz is None:
             with _stage("copy"):
-                self._xyz = self._nodes[:, :3].cpu().numpy().astype(
-                    np.float64)
+                self._xyz = _to_host(self._nodes[:, :3]).astype(np.float64)
         return self._xyz
 
     def to_mef(self) -> MEF:
         if self._mef is None:
             with _stage("copy"):
-                nodes = self._nodes.cpu().numpy()
-                elements = self._elements.cpu().numpy()
+                nodes = _to_host(self._nodes)
+                elements = _to_host(self._elements)
             self._mef = MEF(self.label, self.names, nodes.astype(np.float64),
                             elements.astype(np.int32))
             self._nodes = self._elements = self._xyz = None

@@ -34,6 +34,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..telemetry import count, span
+
 _INT = {torch.float64: torch.int64, torch.float32: torch.int32}
 
 
@@ -94,15 +96,22 @@ def fetch_level(packed: PackedLevel):
     thread may call it (the session's write-back does): it launches
     nothing and allocates nothing on the card.  The caller keeps
     ``packed`` referenced until ``wait()`` has returned.  On the CPU the
-    buffer is the host array and ``wait`` returns at once."""
+    buffer is the host array and ``wait`` returns at once.  The copy counts
+    in ``d2h.bytes``, the wait is the span ``writeback.wait``."""
     if packed.flat.device.type == "cpu":
         return packed.flat.numpy(), lambda: None
     host = torch.empty(packed.flat.shape, dtype=packed.flat.dtype,
                        pin_memory=True)
     host.copy_(packed.flat, non_blocking=True)
+    count("d2h.bytes", host.numel() * host.element_size())
     done = torch.cuda.Event()
     done.record()
-    return host.numpy(), done.synchronize
+
+    def wait():
+        with span("writeback.wait"):
+            done.synchronize()
+
+    return host.numpy(), wait
 
 
 def level_records(packed: PackedLevel, host: np.ndarray,

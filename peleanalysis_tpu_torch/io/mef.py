@@ -20,6 +20,7 @@ from typing import List
 import numpy as np
 
 from ..native import savetxt_fast
+from ..telemetry import span
 from .fab import read_raw_node_fab, write_raw_node_fab
 
 
@@ -92,7 +93,7 @@ def read_mef(path: str) -> MEF:
 
 def write_mef(path: str, mef: MEF) -> None:
     mef.validate()
-    with open(path, "wb") as f:
+    with span("write.mef"), open(path, "wb") as f:
         f.write((mef.label + "\n").encode("ascii"))
         f.write((" ".join(mef.names) + "\n").encode("ascii"))
         f.write(f"{mef.n_elts} {mef.nodes_per_elt}\n".encode("ascii"))
@@ -104,7 +105,7 @@ def write_mef_tecplot(path: str, mef: MEF) -> None:
     """MEF -> Tecplot ASCII FEPOINT (surfMEFtoDAT analog,
     reference: Src/surfMEFtoDAT.cpp:5-13)."""
     zone_type = "TRIANGLE" if mef.nodes_per_elt == 3 else "FELINESEG"
-    with open(path, "w") as f:
+    with span("write.mef"), open(path, "w") as f:
         f.write("VARIABLES = " + " ".join(f'"{n}"' for n in mef.names) + "\n")
         f.write(
             f'ZONE T="{mef.label}" N={mef.n_nodes} E={mef.n_elts} '

@@ -22,6 +22,7 @@ import numpy as np
 from ..amr.box import Box, BoxArray, parse_box
 from ..amr.geometry import Geometry
 from .fab import fab_header_str, read_fab_header, write_fab
+from ..telemetry import span
 
 _PLT_VERSION = "HyperCLaw-V1.1"
 
@@ -278,11 +279,13 @@ def write_plotfile(
 ) -> None:
     """Write a standard multi-level plotfile (WriteMultiLevelPlotfile analog,
     reference: Src/grad.cpp:256)."""
-    write_plotfile_header(path, var_names, time, geoms, ref_ratio,
-                          box_arrays, level_steps)
-    for lev in range(len(box_arrays)):
-        _write_vismf(os.path.join(path, f"Level_{lev}"), "Cell",
-                     box_arrays[lev], level_data[lev], dtype, max_fabs_per_file)
+    with span("write.plotfile"):
+        write_plotfile_header(path, var_names, time, geoms, ref_ratio,
+                              box_arrays, level_steps)
+        for lev in range(len(box_arrays)):
+            _write_vismf(os.path.join(path, f"Level_{lev}"), "Cell",
+                         box_arrays[lev], level_data[lev], dtype,
+                         max_fabs_per_file)
 
 
 def write_plotfile_records(
@@ -303,19 +306,20 @@ def write_plotfile_records(
     box i's contiguous ``[comp, k, j, i]`` array of ``dtype`` and mins/maxs
     are ``[nbox, ncomp]`` float64 tables of those stored values.  The files
     are byte-identical to ``write_plotfile``'s for the same values."""
-    write_plotfile_header(path, var_names, time, geoms, ref_ratio,
-                          box_arrays, level_steps)
-    ncomp = len(var_names)
-    for lev, (payloads, mins, maxs) in enumerate(level_records):
-        ba = box_arrays[lev]
-        dirname = os.path.join(path, f"Level_{lev}")
+    with span("write.plotfile"):
+        write_plotfile_header(path, var_names, time, geoms, ref_ratio,
+                              box_arrays, level_steps)
+        ncomp = len(var_names)
+        for lev, (payloads, mins, maxs) in enumerate(level_records):
+            ba = box_arrays[lev]
+            dirname = os.path.join(path, f"Level_{lev}")
 
-        def write_record(f, i, ba=ba, payloads=payloads):
-            f.write(fab_header_str(ba[i], ncomp, dtype))
-            f.write(payloads[i])
-        entries = _write_fab_files(dirname, "Cell", len(ba), write_record,
-                                   max_fabs_per_file)
-        _write_vismf_h(dirname, "Cell", ba, ncomp, entries, mins, maxs)
+            def write_record(f, i, ba=ba, payloads=payloads):
+                f.write(fab_header_str(ba[i], ncomp, dtype))
+                f.write(payloads[i])
+            entries = _write_fab_files(dirname, "Cell", len(ba),
+                                       write_record, max_fabs_per_file)
+            _write_vismf_h(dirname, "Cell", ba, ncomp, entries, mins, maxs)
 
 
 def write_plotfile_header(path: str, var_names: Sequence[str], time: float,

@@ -21,6 +21,7 @@ already cached still serves its path.
 """
 from __future__ import annotations
 
+import contextvars
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Sequence, Tuple
@@ -37,7 +38,8 @@ def iter_states(args: dict, paths: Sequence[str], names=None,
     names`` (resolved on the worker).  ``dtype`` and ``device`` are the
     consumer's (session.load_state).  A worker's exception surfaces at the
     yield of the file that failed, in order; a consumer that stops early
-    cancels the loads not yet started."""
+    cancels the loads not yet started.  A load runs in the context of its
+    submission (``telemetry``'s parent span and request)."""
     def load(p):
         n = names(p) if callable(names) else names
         return load_state(args, p, names=n, max_level=max_level,
@@ -54,13 +56,15 @@ def iter_states(args: dict, paths: Sequence[str], names=None,
         pending = deque()
         nxt = 0
         while nxt < len(paths) and len(pending) < depth:
-            pending.append((paths[nxt], ex.submit(load, paths[nxt])))
+            pending.append((paths[nxt], ex.submit(
+                contextvars.copy_context().run, load, paths[nxt])))
             nxt += 1
         while pending:
             p, fut = pending.popleft()
             st = fut.result()          # a worker's failure, in order
             if nxt < len(paths):
-                pending.append((paths[nxt], ex.submit(load, paths[nxt])))
+                pending.append((paths[nxt], ex.submit(
+                    contextvars.copy_context().run, load, paths[nxt])))
                 nxt += 1
             yield p, st
     finally:

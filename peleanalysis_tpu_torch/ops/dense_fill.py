@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..amr.box import Box
 from ..amr.geometry import Geometry
+from ..telemetry import span
 from .fill import BCSpec, FOEXTRAP, REFLECT_EVEN, REFLECT_ODD, default_bc
 
 
@@ -269,6 +270,12 @@ def fill_dense_multilevel(meta, lmeta, data_list, mask_list, ngrow,
     filled exactly once.  ngrow: int or per-level list.  Returns a list of
     [ncomp, *(bbox.grow(ngrow).shape)] tensors (views where a level carried
     extra ghosts for the next finer one)."""
+    with span("fill.dense"):
+        return _fill_multilevel(meta, lmeta, data_list, mask_list, ngrow, bc,
+                                interp)
+
+
+def _fill_multilevel(meta, lmeta, data_list, mask_list, ngrow, bc, interp):
     L = meta.n_levels
     if bc is None:
         bc = default_bc(3)
@@ -309,6 +316,12 @@ def fill_dense_arrays(meta, lmeta, data_list, mask_list, lev: int, ngrow: int,
     data_list[lev]: [ncomp, *bbox_shape]; mask_list[lev]: bool [*bbox_shape]
     (True where the level's boxes cover).  Returns
     [ncomp, *(bbox.grow(ngrow).shape)]."""
+    with span("fill.dense"):
+        return _fill_level(meta, lmeta, data_list, mask_list, lev, ngrow, bc,
+                           interp)
+
+
+def _fill_level(meta, lmeta, data_list, mask_list, lev, ngrow, bc, interp):
     geom = meta.geoms[lev]
     if bc is None:
         bc = default_bc(3)
@@ -317,8 +330,8 @@ def fill_dense_arrays(meta, lmeta, data_list, mask_list, lev: int, ngrow: int,
     if lev == 0:
         return _grow_level0(data, bbox, geom, ngrow, bc)
     gc = coarse_ghost_requirement(meta, lmeta, lev, ngrow, interp)
-    crse_grown = fill_dense_arrays(meta, lmeta, data_list, mask_list,
-                                   lev - 1, gc, bc, interp)
+    crse_grown = _fill_level(meta, lmeta, data_list, mask_list, lev - 1, gc,
+                             bc, interp)
     gbox, cbox = _coarse_window(meta, lmeta, lev, ngrow, interp)
     up = _upsampled(crse_grown, lmeta[lev - 1].bbox.grow(gc), cbox, gbox,
                     meta.ref_ratio[lev - 1], interp)

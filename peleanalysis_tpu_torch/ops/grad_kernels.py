@@ -20,11 +20,8 @@ import torch
 
 from . import cuda_build
 from .cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401 (public names)
+from ..telemetry import count
 from .stencil import centered_gradient, magnitude
-
-# kernel launches since import (or since a caller reset it): a run shows
-# that its gradients went through the kernel by how far this moved
-LAUNCHES = 0
 
 _NAME = "grad_mag"
 _LIB = None
@@ -66,7 +63,6 @@ def grad_mag(grown: torch.Tensor, dx: Sequence[float],
 
 def _launch(grown: torch.Tensor, dx: Sequence[float],
             with_mag: bool) -> torch.Tensor:
-    global LAUNCHES
     X, Y, Z = (s - 2 for s in grown.shape[-3:])
     if X > 65535 or (Y + 7) // 8 > 65535:
         raise ValueError(f"grid too large for the kernel's launch: {(X, Y, Z)}")
@@ -81,7 +77,8 @@ def _launch(grown: torch.Tensor, dx: Sequence[float],
                  int(bool(with_mag)), stream)
     if err != 0:
         raise RuntimeError(f"grad_mag kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
+    # a run shows its gradients went through the kernel by this counter
+    count("kernel.grad_mag")
     return out
 
 

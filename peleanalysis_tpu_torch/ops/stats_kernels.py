@@ -38,12 +38,8 @@ import numpy as np
 import torch
 
 from . import cuda_build
+from ..telemetry import count
 from .stencil import _const
-
-# kernel launches since import (or since a caller reset them), one per
-# call of each entry point
-BINNED_LAUNCHES = 0
-JOINT_LAUNCHES = 0
 
 _NAME = "stats_hist"
 _LIB = None
@@ -534,7 +530,6 @@ def joint_plan(vals: Sequence[torch.Tensor], weight: Weight,
 
 def _launch_binned(bin_vals, avg_vals, weight, mask, edges, nbins, clamp,
                    with_minmax, shift):
-    global BINNED_LAUNCHES
     dev, T = bin_vals.device, bin_vals.dtype
     n, ncomp = bin_vals.numel(), avg_vals.shape[0]
     bv, m = _flat(bin_vals), _flat(mask)
@@ -563,13 +558,12 @@ def _launch_binned(bin_vals, avg_vals, weight, mask, edges, nbins, clamp,
     if err != 0:
         raise RuntimeError(f"stats_binned kernel launch failed: cudaError "
                            f"{err} ({plan})")
-    BINNED_LAUNCHES += 1
+    count("kernel.binned")
     return (hits, *mom) if with_minmax else (hits, mom[0], mom[1], None,
                                              None)
 
 
 def _launch_joint(vals, weight, mask, edges, nbins, pairs, shifts, out):
-    global JOINT_LAUNCHES
     dev, T = vals[0].device, vals[0].dtype
     n, P = vals[0].numel(), len(pairs)
     vs = [_flat(v) for v in vals]
@@ -597,7 +591,7 @@ def _launch_joint(vals, weight, mask, edges, nbins, pairs, shifts, out):
                            f"{err} ({plan})")
     if res is not out:
         out.copy_(res)
-    JOINT_LAUNCHES += 1
+    count("kernel.joint")
 
 
 def library_path() -> Path:

@@ -46,6 +46,8 @@ import socket
 import sys
 import traceback
 
+from .telemetry import count, request, span
+
 DEFAULT_SOCKET = "pele_serve.sock"
 
 
@@ -143,7 +145,8 @@ def _run(sess, argv, sync: bool) -> dict:
         # the caller wants the files on reply: a write failure is this
         # command's failure
         try:
-            sess.flush_writes()
+            with span("serve.settle"):
+                sess.flush_writes()
         except Exception as e:
             rc = 1
             err.write(f"pending write failed: {e}")
@@ -188,7 +191,9 @@ def _serve_conn(conn, sess, idle_timeout, verbose, max_requests, n_req):
             argv = req.get("argv") or []
             if verbose:
                 print(f"<- {' '.join(argv)}", flush=True)
-            reply(_run(sess, argv, bool(req.get("sync"))))
+            with request(), span("serve.request"):
+                count("serve.requests")
+                reply(_run(sess, argv, bool(req.get("sync"))))
             n_req += 1
             if max_requests and n_req >= max_requests:
                 return 0, n_req

@@ -46,6 +46,7 @@ Python API::
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import os
 import threading
@@ -57,6 +58,7 @@ import torch
 from . import config
 from .amr.dense import DenseAmrState, _level_metas, assemble_level
 from .amr.hierarchy import load_plotfile_fabs
+from .telemetry import count, span
 
 
 def _host_key(path: str, max_level, is_periodic) -> Tuple:
@@ -158,7 +160,10 @@ class Session:
                 from concurrent.futures import ThreadPoolExecutor
                 self._wb_pool = ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="pele-writeback")
-            self._wb.append((path, self._wb_pool.submit(thunk)))
+            # the write runs in the context of its submission
+            # (telemetry's parent span and request)
+            self._wb.append((path, self._wb_pool.submit(
+                contextvars.copy_context().run, thunk)))
 
     def flush_writes(self, match: Optional[Sequence[str]] = None) -> None:
         """Wait for pending writes and re-raise the first failure.
@@ -180,12 +185,15 @@ class Session:
         with self._cache_lock:
             take = [(p, f) for p, f in self._wb if hits(p)]
             self._wb = [(p, f) for p, f in self._wb if not hits(p)]
+        if not take:
+            return
         err = None
-        for _, fut in take:
-            try:
-                fut.result()
-            except Exception as e:             # surface at the flush point
-                err = err or e
+        with span("session.flush"):
+            for _, fut in take:
+                try:
+                    fut.result()
+                except Exception as e:         # surface at the flush point
+                    err = err or e
         if err is not None:
             raise err
 
@@ -206,7 +214,10 @@ class Session:
 
         cache=False reuses an existing entry or output but never INSERTS
         one (series loops, io/prefetch.py) and never extends one: comps an
-        entry lacks are read into a fresh, uncached load."""
+        entry lacks are read into a fresh, uncached load.
+
+        Counts ``session.host_hit`` when nothing is read, else
+        ``session.host_miss``."""
         src = self.plotfiles.get(path)
         if src is not None:
             st = src.state
@@ -222,6 +233,7 @@ class Session:
                 st.device)
             comp_ok = names is None or all(n in st.names for n in names)
             if per_ok and lev_ok and dt_ok and dev_ok and comp_ok:
+                count("session.host_hit")
                 return src
             if not os.path.isdir(path):
                 missing = ([] if comp_ok else
@@ -258,6 +270,7 @@ class Session:
                     if cache:
                         self._states[key] = (mtime, src)
         if src is None:
+            count("session.host_miss")
             src = LoadedPlotfile(*load_plotfile_fabs(path, names, max_level,
                                                      is_periodic))
             if cache:
@@ -275,11 +288,14 @@ class Session:
             missing = [n for n in vn if n not in src.names]
         else:
             missing = [n for n in names if n not in src.names]
-        if missing:
-            if not cache:
-                return LoadedPlotfile(*load_plotfile_fabs(
-                    path, names, max_level, is_periodic))
-            self._extend(src, path, missing, max_level, is_periodic)
+        if not missing:
+            count("session.host_hit")
+            return src
+        count("session.host_miss")
+        if not cache:
+            return LoadedPlotfile(*load_plotfile_fabs(
+                path, names, max_level, is_periodic))
+        self._extend(src, path, missing, max_level, is_periodic)
         return src
 
     def _evict(self, src: LoadedPlotfile) -> None:
@@ -321,9 +337,12 @@ class Session:
         once per (entry, device, dtype) and brought up to the comps the
         entry has gained since (appended, so comp indices stay valid).  A
         sibling entry's state lends its tensors; a registered output on
-        the same device is itself, or a widened copy for a wider dtype."""
+        the same device is itself, or a widened copy for a wider dtype.
+        Counts ``session.dense_build`` when it assembles host FABs, else
+        ``session.dense_hit``."""
         key = (id(src), _dev_key(device), dtype)
         st = src.state
+        built = False
         with self._cache_lock:
             ds = self._dense.get(key)
             sib = next((self._dense[(id(e), key[1], dtype)]
@@ -340,6 +359,7 @@ class Session:
             else:
                 ds = DenseAmrState.from_level_fabs(src.meta, src.names,
                                                    src.fabs, device, dtype)
+                built = True
             # only session-owned entries pin their dense states: a
             # streamed series member (load cache=False) must not stay
             # resident
@@ -354,6 +374,8 @@ class Session:
                     src.meta.bas[lev], [f[n:] for f in src.fabs[lev]],
                     ds.lmeta[lev].bbox, dtype, ds.device)])
             ds.names.extend(src.names[n:])
+            built = True
+        count("session.dense_build" if built else "session.dense_hit")
         return ds
 
     # -- output registry ------------------------------------------------------------

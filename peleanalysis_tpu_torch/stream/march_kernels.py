@@ -41,11 +41,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_build
-
-# kernel launches since import (or since a caller reset it): the march
-# kernel's and the order key kernel's
-LAUNCHES = 0
-KEY_LAUNCHES = 0
+from ..telemetry import count
 
 # corner order of the trilinear stencil (i, j, k offsets), as
 # peleanalysis_tpu/stream/trace.py CORNER_OFFSETS_S
@@ -220,7 +216,6 @@ def _check(field, plo, dx, seeds, n_steps, dirs) -> None:
 
 
 def _launch(field, plo, dx, h, seeds, n_steps, dirs, shape, origin):
-    global LAUNCHES
     N = seeds.shape[0]
     out = torch.empty((n_steps + 1, N, 3), dtype=seeds.dtype,
                       device=seeds.device)
@@ -243,7 +238,7 @@ def _launch(field, plo, dx, h, seeds, n_steps, dirs, shape, origin):
     if err != 0:
         raise RuntimeError(f"stream_march kernel launch failed: "
                            f"cudaError {err}")
-    LAUNCHES += 1
+    count("kernel.march")
     return out, alive
 
 
@@ -287,7 +282,6 @@ def order_key(shape: Sequence[int], plo: Sequence[float],
     """Dispatcher of the order key of float64 positions (the ``ORDERED``
     march): ``order_key_torch`` for a CPU tensor, the kernel
     ``stream_march_key_f64`` for a CUDA tensor."""
-    global KEY_LAUNCHES
     if seeds.dtype != torch.float64 or dirs.dtype != torch.float64:
         raise TypeError(f"the order key takes float64 seeds and dirs, not "
                         f"{seeds.dtype} and {dirs.dtype}")
@@ -308,7 +302,7 @@ def order_key(shape: Sequence[int], plo: Sequence[float],
     if err != 0:
         raise RuntimeError(f"stream_march order key launch failed: "
                            f"cudaError {err}")
-    KEY_LAUNCHES += 1
+    count("kernel.order_key")
     return key
 
 

@@ -27,13 +27,14 @@ import torch
 
 from .. import config
 from ..amr.cluster import clustered, sparse_stats_parts
-from ..amr.dense import DenseAmrState
+from ..amr.dense import DenseAmrState, host_to_device
 from ..io.plotfile import PlotfileReader
 from ..ops.stats import binned_stats, reconstruct_moments
 from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
 from ..session import LoadedPlotfile, dense_state
 from ..session import var_names as plotfile_vars
+from ..telemetry import span
 from .grad import refuse_unported
 
 
@@ -118,43 +119,44 @@ def accumulate_conditional_mean(dstate: DenseAmrState, bin_name: str,
     outside are excluded (conditionalMean.cpp:180-192 bounds key, coarse
     indices rounded with the reference's ±1e-4*dx nudges).  Returns float64
     numpy (hits, sums, sumsq, mins, maxs)."""
-    meta = dstate.meta
-    weights, ib, ia, masks = _stats_inputs(dstate, bin_name, avg_names)
-    if bounds is not None:
-        g0 = meta.geoms[0]
-        lo0 = [max(g0.domain.lo[d],
-                   int((bounds[0][d] - g0.prob_lo[d] + 1e-4 * g0.dx[d])
-                       / g0.dx[d])) for d in range(3)]
-        hi0 = [min(g0.domain.hi[d],
-                   int((bounds[1][d] - g0.prob_lo[d] - 1e-4 * g0.dx[d])
-                       / g0.dx[d])) for d in range(3)]
-        rat = 1
-        for lev in range(meta.n_levels):
-            if lev > 0:
-                rat *= meta.ref_ratio[lev - 1]
-            bbox = dstate.lmeta[lev].bbox
-            sel = []
-            for d in range(3):
-                idx = np.arange(bbox.lo[d], bbox.hi[d] + 1)
-                sel.append((idx >= lo0[d] * rat)
-                           & (idx <= (hi0[d] + 1) * rat - 1))
-            box_m = (sel[0][:, None, None] & sel[1][None, :, None]
-                     & sel[2][None, None, :])
-            masks[lev] = masks[lev] & torch.from_numpy(box_m).to(
-                dstate.device)
-    out = _fetch(_accumulate_all(list(dstate.data), masks, ib, ia, weights,
-                                 float(bin_min), float(bin_max), nbins,
-                                 with_minmax))
-    if with_minmax:
-        hits, sums_s, sumsq_s, mins, maxs, shift = out
-    else:
-        hits, sums_s, sumsq_s, shift = out
-        mins = np.full((nbins, len(avg_names)), np.inf)
-        maxs = np.full((nbins, len(avg_names)), -np.inf)
-    # raw columns reconstructed in float64 on the host (the reference
-    # accumulates in double); the shift terms cancel in the variance
-    sums, sumsq = reconstruct_moments(hits, sums_s, sumsq_s, shift)
-    return hits, sums, sumsq, mins, maxs
+    with span("stats.accumulate"):
+        meta = dstate.meta
+        weights, ib, ia, masks = _stats_inputs(dstate, bin_name, avg_names)
+        if bounds is not None:
+            g0 = meta.geoms[0]
+            lo0 = [max(g0.domain.lo[d],
+                       int((bounds[0][d] - g0.prob_lo[d] + 1e-4 * g0.dx[d])
+                           / g0.dx[d])) for d in range(3)]
+            hi0 = [min(g0.domain.hi[d],
+                       int((bounds[1][d] - g0.prob_lo[d] - 1e-4 * g0.dx[d])
+                           / g0.dx[d])) for d in range(3)]
+            rat = 1
+            for lev in range(meta.n_levels):
+                if lev > 0:
+                    rat *= meta.ref_ratio[lev - 1]
+                bbox = dstate.lmeta[lev].bbox
+                sel = []
+                for d in range(3):
+                    idx = np.arange(bbox.lo[d], bbox.hi[d] + 1)
+                    sel.append((idx >= lo0[d] * rat)
+                               & (idx <= (hi0[d] + 1) * rat - 1))
+                box_m = (sel[0][:, None, None] & sel[1][None, :, None]
+                         & sel[2][None, None, :])
+                masks[lev] = masks[lev] & host_to_device(box_m,
+                                                         dstate.device)
+        out = _fetch(_accumulate_all(list(dstate.data), masks, ib, ia, weights,
+                                     float(bin_min), float(bin_max), nbins,
+                                     with_minmax))
+        if with_minmax:
+            hits, sums_s, sumsq_s, mins, maxs, shift = out
+        else:
+            hits, sums_s, sumsq_s, shift = out
+            mins = np.full((nbins, len(avg_names)), np.inf)
+            maxs = np.full((nbins, len(avg_names)), -np.inf)
+        # raw columns reconstructed in float64 on the host (the reference
+        # accumulates in double); the shift terms cancel in the variance
+        sums, sumsq = reconstruct_moments(hits, sums_s, sumsq_s, shift)
+        return hits, sums, sumsq, mins, maxs
 
 
 def accumulate_stats_fused(dstate: DenseAmrState, bin_name: str,
@@ -168,19 +170,21 @@ def accumulate_stats_fused(dstate: DenseAmrState, bin_name: str,
     paths do."""
     from .jpdf import _jpdf_all
 
-    meta = dstate.meta
-    weights, ib, ia, masks = _stats_inputs(dstate, bin_name, avg_names)
-    i1, i2 = dstate.comp(pair[0]), dstate.comp(pair[1])
-    vols = [float(np.prod(meta.geoms[lev].dx)) for lev in range(meta.n_levels)]
-    data = list(dstate.data)
-    cm = _accumulate_all(data, masks, ib, ia, weights, float(bin_min),
-                         float(bin_max), nbins, False)
-    jp = _jpdf_all([d[i1] for d in data], [d[i2] for d in data], masks, vols,
-                   tuple(float(v) for v in pair_bounds), pair_nbins)
-    (hits, sums_s, sumsq_s, shift, b, bx1_s, bx2_s, c1, c2) = _fetch(
-        list(cm) + list(jp))
-    sums, sumsq = reconstruct_moments(hits, sums_s, sumsq_s, shift)
-    return ((hits, sums, sumsq), (b, bx1_s + c1 * b, bx2_s + c2 * b))
+    with span("stats.accumulate"):
+        meta = dstate.meta
+        weights, ib, ia, masks = _stats_inputs(dstate, bin_name, avg_names)
+        i1, i2 = dstate.comp(pair[0]), dstate.comp(pair[1])
+        vols = [float(np.prod(meta.geoms[lev].dx))
+                for lev in range(meta.n_levels)]
+        data = list(dstate.data)
+        cm = _accumulate_all(data, masks, ib, ia, weights, float(bin_min),
+                             float(bin_max), nbins, False)
+        jp = _jpdf_all([d[i1] for d in data], [d[i2] for d in data], masks,
+                       vols, tuple(float(v) for v in pair_bounds), pair_nbins)
+        (hits, sums_s, sumsq_s, shift, b, bx1_s, bx2_s, c1, c2) = _fetch(
+            list(cm) + list(jp))
+        sums, sumsq = reconstruct_moments(hits, sums_s, sumsq_s, shift)
+        return ((hits, sums, sumsq), (b, bx1_s + c1 * b, bx2_s + c2 * b))
 
 
 def write_cm_dat(path: str, bin_name: str, avg_names: Sequence[str],
@@ -188,7 +192,7 @@ def write_cm_dat(path: str, bin_name: str, avg_names: Sequence[str],
                  hits, sums, sumsq, mins=None, maxs=None,
                  with_minmax: bool = False) -> None:
     """Tecplot-style ASCII matching conditionalMean.cpp:310-399."""
-    with open(path, "w") as f:
+    with span("write.text"), open(path, "w") as f:
         cols = ["VARIABLES = " + bin_name]
         for suf in ("sum", "sumSq", "avg", "std"):
             cols += [f"{n}_{suf}" for n in avg_names]

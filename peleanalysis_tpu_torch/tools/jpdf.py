@@ -45,6 +45,7 @@ from ..ops.stats import joint_pdf, joint_pdf_multi, masked_mean
 from ..ops.stencil import _const
 from ..io.prefetch import iter_states, query_prefetch
 from ..parmparse import ParmParse
+from ..telemetry import span
 from .conditional_mean import _fetch, stats_parts
 from .curvature import _masked_minmax
 from .grad import refuse_unported
@@ -104,9 +105,10 @@ def compute_jpdf_pairs(dstate: DenseAmrState, field_levels, lo, hi, nbins,
     nv = len(field_levels)
     vals_list = [[field_levels[v][lev] for v in range(nv)]
                  for lev in range(dstate.meta.n_levels)]
-    b, bx1_s, bx2_s, sh = _fetch(list(_jpdf_multi_all(
-        vals_list, _masks(dstate, cond_levels), _vols(dstate), lo, hi, nbins,
-        [tuple(p) for p in pairs])))
+    with span("stats.accumulate"):
+        b, bx1_s, bx2_s, sh = _fetch(list(_jpdf_multi_all(
+            vals_list, _masks(dstate, cond_levels), _vols(dstate), lo, hi,
+            nbins, [tuple(p) for p in pairs])))
     ii = np.asarray([p[0] for p in pairs])
     jj = np.asarray([p[1] for p in pairs])
     bx1 = bx1_s + sh[ii][:, None, None] * b
@@ -145,10 +147,11 @@ def compute_jpdf_pair(dstate: DenseAmrState, f1_levels, f2_levels,
                       v1min, v1max, v2min, v2max, nbins, cond_levels=None):
     """One pair over all levels, one host fetch.  f*_levels: [lev] ->
     [*bbox].  Returns float64 numpy (b, bx1, bx2)."""
-    b, bx1_s, bx2_s, c1, c2 = _fetch(list(_jpdf_all(
-        list(f1_levels), list(f2_levels), _masks(dstate, cond_levels),
-        _vols(dstate), (float(v1min), float(v1max), float(v2min),
-                        float(v2max)), nbins)))
+    with span("stats.accumulate"):
+        b, bx1_s, bx2_s, c1, c2 = _fetch(list(_jpdf_all(
+            list(f1_levels), list(f2_levels), _masks(dstate, cond_levels),
+            _vols(dstate), (float(v1min), float(v1max), float(v2min),
+                            float(v2max)), nbins)))
     return b, bx1_s + c1 * b, bx2_s + c2 * b
 
 
@@ -238,16 +241,17 @@ def _protect(name: str) -> str:
 
 def _emit(outputs, base, p1, p2, n1, n2, C1, C2, b, bx1, bx2,
           v1min, v1max, v2min, v2max):
-    if outputs["gnuplot"]:
-        write_gnuplot(f"{base}/Pdf_{p1}_{p2}.gpd", C1, C2, b)
-    if outputs["matlab"]:
-        write_matlab(base, p1, p2, C1, C2, b, bx1, bx2)
-    if outputs["tecplot"]:
-        write_tecplot(f"{base}/Pdf_{p1}_{p2}.tpd", n1, n2, C1, C2, b)
-    if outputs["fab"]:
-        write_fab_pdf(f"{base}/Pdf_{p1}_{p2}.fab", C1, C2, b)
-    if outputs["scatter"]:
-        write_scatter(f"{base}/Scatter_{p1}_{p2}.dat", C1, C2, b)
+    with span("write.text"):
+        if outputs["gnuplot"]:
+            write_gnuplot(f"{base}/Pdf_{p1}_{p2}.gpd", C1, C2, b)
+        if outputs["matlab"]:
+            write_matlab(base, p1, p2, C1, C2, b, bx1, bx2)
+        if outputs["tecplot"]:
+            write_tecplot(f"{base}/Pdf_{p1}_{p2}.tpd", n1, n2, C1, C2, b)
+        if outputs["fab"]:
+            write_fab_pdf(f"{base}/Pdf_{p1}_{p2}.fab", C1, C2, b)
+        if outputs["scatter"]:
+            write_scatter(f"{base}/Scatter_{p1}_{p2}.dat", C1, C2, b)
     if outputs["plotfile"]:
         write_pdf_plotfile(f"{base}/Pdf_{p1}_{p2}_plt", n1, n2,
                            v1min, v1max, v2min, v2max, b)

@@ -31,6 +31,7 @@ from peleanalysis_tpu.stream.trace import _trace_level
 from peleanalysis_tpu.stream.trace import \
     trace_streamlines as jax_trace_streamlines
 from peleanalysis_tpu.testing import write_synthetic_plotfile
+from peleanalysis_tpu_torch import telemetry
 from peleanalysis_tpu_torch.amr.dense import DenseAmrState
 from peleanalysis_tpu_torch.stream import march_kernels as mk
 from peleanalysis_tpu_torch.stream.trace import (assign_seeds_to_levels,
@@ -262,9 +263,10 @@ def test_order_key_is_a_locality_permutation(shape):
                      np.full_like(a, 0.5)], 1)
     s = torch.from_numpy(np.concatenate([ring, ring]))
     d = torch.cat([torch.ones(200), -torch.ones(200)]).to(torch.float64)
-    before = mk.KEY_LAUNCHES
+    before = telemetry.counter("kernel.order_key")
     key = mk.order_key(shape, plo, dx, s, d)
-    assert mk.KEY_LAUNCHES == before        # no kernel launch on the CPU
+    # no kernel launch on the CPU
+    assert telemetry.counter("kernel.order_key") == before
     assert key.dtype == torch.int32 and torch.equal(
         key, mk.order_key_torch(shape, plo, dx, s, d))
     assert (key >= 0).all() and torch.equal(key >> 30, (d < 0).int())
@@ -299,10 +301,11 @@ def test_order_key_takes_float64_only(bad):
 
 def test_march_dispatcher_cpu_takes_plain_version():
     vec, plo, dx, h, seeds, dirs, n = _rotating_case()
-    before = mk.LAUNCHES
+    before = telemetry.counter("kernel.march")
     got, ok = _port_march(vec, plo, dx, h, seeds, dirs, n, np.float64,
                           fn=mk.march)
-    assert mk.LAUNCHES == before            # no kernel launch on the CPU
+    # no kernel launch on the CPU
+    assert telemetry.counter("kernel.march") == before
     want, want_ok = _port_march(vec, plo, dx, h, seeds, dirs, n, np.float64)
     assert torch.equal(got, want) and torch.equal(ok, want_ok)
 
