@@ -6,7 +6,7 @@ compute, write, read file i+1.  :func:`iter_states` reads file i+1 on one
 background thread while the caller computes on file i.
 
 What overlaps with what on the H100: the worker produces the HOST FABs
-(``session.load_state(..., cache=False)``: the native VisMF loader, a
+(``session.load_state``: the native VisMF loader, a
 ``ctypes`` call that releases the GIL, and its host numpy); the caller
 builds the ``DenseAmrState`` on the main thread (host assembly and the
 copy to the card), so every CUDA call stays on the main thread.  The read
@@ -15,9 +15,13 @@ the steady-state time a file becomes ``max(read, the rest)`` instead of
 their sum.
 
 Exactly ``depth`` loads are in flight beyond the file the consumer holds
-(depth 1: peak host residency two files).  Series members are never
-INSERTED into a session's cache, but a registered output or an entry
-already cached still serves its path.
+(depth 1: peak host residency two files).  Members of a series of two or
+more files are never INSERTED into a session's cache (``cache=False``),
+but a registered output or an entry already cached still serves its path.
+A single file in a session loads through the session's host cache
+(``cache="host"``): its entry is inserted, or extended by the missing
+comps only, and kept for the session's life, while the dense states built
+from it are not.
 """
 from __future__ import annotations
 
@@ -40,13 +44,15 @@ def iter_states(args: dict, paths: Sequence[str], names=None,
     yield of the file that failed, in order; a consumer that stops early
     cancels the loads not yet started.  A load runs in the context of its
     submission (``telemetry``'s parent span and request)."""
+    paths = list(paths)
+    cache = "host" if len(paths) == 1 else False
+
     def load(p):
         n = names(p) if callable(names) else names
         return load_state(args, p, names=n, max_level=max_level,
                           is_periodic=is_periodic, dtype=dtype,
-                          device=device, cache=False)
+                          device=device, cache=cache)
 
-    paths = list(paths)
     if depth <= 0 or len(paths) <= 1:
         for p in paths:
             yield p, load(p)

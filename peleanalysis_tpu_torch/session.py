@@ -17,7 +17,15 @@ thread one Session through the tool mains instead:
     periodicity share the host FABs and the device tensors (periodicity is
     metadata), so grad (periodic by default) and curvature (float32) share
     one read with isosurface and stream (float64), and each dtype is
-    assembled and copied to the card once;
+    assembled and copied to the card once.  A dense state holds the comps
+    its consumers asked for (``dense``'s ``names``), so an entry extended
+    for one tool does not widen another tool's state on the card;
+  * a single-file series load (``io/prefetch.iter_states`` of one path:
+    conditionalMean, jpdf, rmsVel, turbulenceSpectra, avgPlotfiles) goes
+    through the same host cache, inserting or extending the entry, but
+    gets a transient view of it: the dense states built from the view are
+    not kept, so those tools' states stay off the card between requests.
+    A series of two or more files is never cached;
   * tool outputs (plotfiles, MEF surfaces, streamline sets) are registered
     under their output names; a later stage asking for that name gets the
     in-memory object instead of reading the file back, when its device,
@@ -83,6 +91,22 @@ def _with_periodicity(meta, is_periodic):
                tuple(bool(p) for p in is_periodic))
     return dataclasses.replace(meta, geoms=[
         dataclasses.replace(g, is_periodic=per) for g in meta.geoms])
+
+
+def _comps(src: "LoadedPlotfile", names: Sequence[str]):
+    """``src``'s host FABs cut to ``names``, in that order: ``src.fabs``
+    itself when they are all of its comps in order, views when their
+    indices step evenly upwards (any one comp, or two in the entry's
+    order), else copies (a copy into fresh host memory costs about as much
+    as reading the comps again)."""
+    idx = [src.names.index(n) for n in names]
+    if idx == list(range(len(src.names))):
+        return src.fabs
+    step = idx[1] - idx[0] if len(idx) > 1 else 1
+    sel = (slice(idx[0], idx[-1] + 1, step)
+           if step > 0 and idx == list(range(idx[0], idx[-1] + 1, step))
+           else idx)
+    return [[f[sel] for f in fabs] for fabs in src.fabs]
 
 
 def _header_mtime(path: str):
@@ -201,7 +225,7 @@ class Session:
 
     def load(self, path: str, names: Optional[Sequence[str]] = None,
              max_level=None, is_periodic=None, dtype=None, device=None,
-             cache: bool = True, widen_ok: bool = False) -> LoadedPlotfile:
+             cache=True, widen_ok: bool = False) -> LoadedPlotfile:
         """Cached ``load_plotfile_fabs``; extends the comp set in place.
 
         A registered output of ``path`` shadows the file when the request
@@ -212,9 +236,16 @@ class Session:
         levels, and the comps asked for.  A mismatch falls back to the file
         on disk, or raises when the producer ran with write=0.
 
-        cache=False reuses an existing entry or output but never INSERTS
-        one (series loops, io/prefetch.py) and never extends one: comps an
-        entry lacks are read into a fresh, uncached load.
+        cache=True returns the cached entry, and the dense states built
+        from it stay on their device (``dense``).  cache="host" inserts or
+        extends the entry the same way but returns a transient view of
+        exactly ``names`` (every variable, in the file's order, when None)
+        over its host FABs: no dense state built from the view is kept
+        (io/prefetch.py's single-file loads).  cache=False reuses an
+        existing entry or output but never INSERTS one (multi-file series,
+        io/prefetch.py) and never extends one: comps an entry lacks are
+        read into a fresh, uncached load.  Every mode drops an entry whose
+        Header has been rewritten since it was read.
 
         Counts ``session.host_hit`` when nothing is read, else
         ``session.host_miss``."""
@@ -276,26 +307,28 @@ class Session:
             if cache:
                 with self._cache_lock:
                     self._states[key] = (mtime, src)
-            return src
-        if names is None:
-            with self._cache_lock:
-                vn = self._var_names.get((path, mtime))
-            if vn is None:
-                from .io.plotfile import PlotfileReader
-                vn = list(PlotfileReader(path).var_names)
-                with self._cache_lock:
-                    self._var_names[(path, mtime)] = vn
-            missing = [n for n in vn if n not in src.names]
+            want = src.names
         else:
-            missing = [n for n in names if n not in src.names]
-        if not missing:
-            count("session.host_hit")
-            return src
-        count("session.host_miss")
-        if not cache:
-            return LoadedPlotfile(*load_plotfile_fabs(
-                path, names, max_level, is_periodic))
-        self._extend(src, path, missing, max_level, is_periodic)
+            want = names
+            if names is None:
+                with self._cache_lock:
+                    want = self._var_names.get((path, mtime))
+                if want is None:
+                    from .io.plotfile import PlotfileReader
+                    want = list(PlotfileReader(path).var_names)
+                    with self._cache_lock:
+                        self._var_names[(path, mtime)] = want
+            missing = [n for n in want if n not in src.names]
+            if not missing:
+                count("session.host_hit")
+            else:
+                count("session.host_miss")
+                if not cache:
+                    return LoadedPlotfile(*load_plotfile_fabs(
+                        path, names, max_level, is_periodic))
+                self._extend(src, path, missing, max_level, is_periodic)
+        if cache == "host":
+            return LoadedPlotfile(src.meta, list(want), _comps(src, want))
         return src
 
     def _evict(self, src: LoadedPlotfile) -> None:
@@ -331,15 +364,18 @@ class Session:
                 fabs[i] = np.concatenate([fabs[i], fab], axis=0)
         src.names.extend(missing)
 
-    def dense(self, src: LoadedPlotfile, device,
-              dtype: torch.dtype) -> DenseAmrState:
-        """The entry's ``DenseAmrState`` on ``device`` in ``dtype``, built
-        once per (entry, device, dtype) and brought up to the comps the
-        entry has gained since (appended, so comp indices stay valid).  A
-        sibling entry's state lends its tensors; a registered output on
-        the same device is itself, or a widened copy for a wider dtype.
-        Counts ``session.dense_build`` when it assembles host FABs, else
-        ``session.dense_hit``."""
+    def dense(self, src: LoadedPlotfile, device, dtype: torch.dtype,
+              names: Optional[Sequence[str]] = None) -> DenseAmrState:
+        """The entry's ``DenseAmrState`` on ``device`` in ``dtype``
+        holding at least ``names`` (None: every comp of the entry), built
+        once per (entry, device, dtype) and extended by the comps of
+        ``names`` it lacks (appended, so comp indices stay valid): a comp
+        another tool added to the entry reaches the card only for a caller
+        that asks for it.  A sibling entry's state lends its tensors; a
+        registered output on the same device is itself, or a widened copy
+        for a wider dtype.  Counts ``session.dense_build`` when it
+        assembles host FABs, else ``session.dense_hit``."""
+        want = list(src.names if names is None else names)
         key = (id(src), _dev_key(device), dtype)
         st = src.state
         built = False
@@ -357,23 +393,25 @@ class Session:
                 ds = DenseAmrState(src.meta, sib.names, list(sib.data),
                                    _level_metas(src.meta), device)
             else:
-                ds = DenseAmrState.from_level_fabs(src.meta, src.names,
-                                                   src.fabs, device, dtype)
+                ds = DenseAmrState.from_level_fabs(
+                    src.meta, want, _comps(src, want), device, dtype)
                 built = True
             # only session-owned entries pin their dense states: a
-            # streamed series member (load cache=False) must not stay
-            # resident
+            # streamed series member (load cache=False) and a single-file
+            # series load's view (cache="host") must not stay resident
             if self._owns(src):
                 with self._cache_lock:
                     self._dense[key] = ds
                     self._retain[id(src)] = src
-        n = len(ds.names)
-        if st is None and n < len(src.names):
+        missing = [] if st is not None else [n for n in want
+                                             if n not in ds.names]
+        if missing:
+            fabs = _comps(src, missing)
             for lev in range(src.meta.n_levels):
                 ds.data[lev] = torch.cat([ds.data[lev], assemble_level(
-                    src.meta.bas[lev], [f[n:] for f in src.fabs[lev]],
-                    ds.lmeta[lev].bbox, dtype, ds.device)])
-            ds.names.extend(src.names[n:])
+                    src.meta.bas[lev], fabs[lev], ds.lmeta[lev].bbox, dtype,
+                    ds.device)])
+            ds.names.extend(missing)
             built = True
         count("session.dense_build" if built else "session.dense_hit")
         return ds
@@ -433,7 +471,7 @@ def get_session(args: dict) -> Optional[Session]:
 
 
 def load_state(args: dict, path: str, names=None, max_level=None,
-               is_periodic=None, dtype=None, device=None, cache: bool = True,
+               is_periodic=None, dtype=None, device=None, cache=True,
                widen_ok: bool = False) -> LoadedPlotfile:
     """Session-aware ``load_plotfile_fabs`` (the arguments: Session.load;
     ``dtype`` and ``device`` are the consumer's, checked against a
@@ -448,11 +486,12 @@ def load_state(args: dict, path: str, names=None, max_level=None,
 
 
 def dense_state(args: dict, src: LoadedPlotfile, device,
-                dtype: torch.dtype) -> DenseAmrState:
-    """Session-aware ``DenseAmrState.from_level_fabs``."""
+                dtype: torch.dtype, names=None) -> DenseAmrState:
+    """Session-aware ``DenseAmrState.from_level_fabs``; ``names``: the
+    comps the caller loaded (Session.dense), None for all of ``src``'s."""
     s = get_session(args)
     if s is not None:
-        return s.dense(src, device, dtype)
+        return s.dense(src, device, dtype, names)
     return DenseAmrState.from_level_fabs(src.meta, src.names, src.fabs,
                                          device, dtype)
 
@@ -486,7 +525,7 @@ def load_dense(args: dict, path: str, device, dtype: torch.dtype,
     src = load_state(args, path, names=names, max_level=max_level,
                      is_periodic=is_periodic, dtype=dtype, device=device,
                      widen_ok=widen_ok)
-    return select(dense_state(args, src, device, dtype),
+    return select(dense_state(args, src, device, dtype, names),
                   names if names is not None else var_names(args, path))
 
 

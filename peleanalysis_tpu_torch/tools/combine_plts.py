@@ -53,7 +53,8 @@ def main(args: dict) -> None:
     def load(path, names, max_level=None):
         src = load_state(args, path, names=names, max_level=max_level,
                          dtype=torch.float64, device=device, widen_ok=True)
-        return select(dense_state(args, src, device, torch.float64), names)
+        return select(dense_state(args, src, device, torch.float64,
+                                  names), names)
 
     if pp.contains("infiles"):
         files = pp.get_str_list("infiles")

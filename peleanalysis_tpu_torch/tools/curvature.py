@@ -532,7 +532,7 @@ def main(args: dict) -> None:
                              progress_name, aux_names, outfile, **kw):
             print(f"wrote {outfile} ({ndev} shards)")
         return
-    dstate = dense_state(args, src, device, config.compute_dtype)
+    dstate = dense_state(args, src, device, config.compute_dtype, names)
     out = _with_aux(compute_curvature_dense(dstate, progress_name, **kw),
                     dstate, aux_names, range(meta.n_levels))
     sess = get_session(args)

@@ -63,7 +63,7 @@ def main(args: dict) -> None:
                      max_level=pp.query_int("max_filter_level", None),
                      dtype=config.compute_dtype, device=device)
     names = want or var_names(args, infile)
-    ds = dense_state(args, src, device, config.compute_dtype)
+    ds = dense_state(args, src, device, config.compute_dtype, want)
     # filter_type: PelePhysics integer codes (filterPlt.cpp:80; Filter.H
     # box=1, gaussian=2) or the spelled-out name
     kind = pp.query_str("filter_type", "box")

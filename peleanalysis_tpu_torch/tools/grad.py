@@ -133,7 +133,8 @@ def main(args: dict) -> None:
     interp = pp.query_str("cf_interp", "quadratic")
     ndev = pp.query_int("ndevices", 1)
 
-    src = load_state(args, infile, names=[var] + list(aux),
+    load = [var] + list(aux)
+    src = load_state(args, infile, names=load,
                      max_level=finest, is_periodic=[bool(p) for p in is_per],
                      dtype=config.compute_dtype, device=device)
     meta = src.meta
@@ -161,7 +162,7 @@ def main(args: dict) -> None:
                 w, var, flux_match=flux_match, **kw), outfile):
             print(f"wrote {outfile} ({ndev} shards)")
         return
-    dstate = dense_state(args, src, device, config.compute_dtype)
+    dstate = dense_state(args, src, device, config.compute_dtype, load)
     out = compute_grad_dense(dstate, var, flux_match=flux_match, **kw)
     sess = get_session(args)
     if sess is not None:

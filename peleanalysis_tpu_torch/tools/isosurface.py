@@ -122,7 +122,7 @@ def main(args: dict) -> None:
             mef = extract_isosurface_windows(sd, iso_name, iso_val, extras,
                                              label=label)
     else:
-        ds = dense_state(args, src, device, torch.float64)
+        ds = dense_state(args, src, device, torch.float64, load)
         t1 = time.perf_counter()
         if meta.ndim2:
             # DIM=2 plotfile: marching squares -> polyline contour MEF

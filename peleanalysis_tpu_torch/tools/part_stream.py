@@ -89,7 +89,7 @@ def main(args: dict) -> None:
               and ndev <= 1)
     ds = (DenseAmrState.coarse_only(meta, src.names, fabs, device,
                                     torch.float64) if sparse
-          else dense_state(args, src, device, torch.float64))
+          else dense_state(args, src, device, torch.float64, vel))
 
     elements = np.zeros((0, 3), np.int32)
     if one_per_cell:

@@ -140,7 +140,7 @@ def main(args: dict) -> None:
             sampled.append(sample_onto_lines_sparse(base, src.fabs[-1],
                                                     sd.lines, grp))
         else:
-            ds = dense_state(args, src, device, torch.float64)
+            ds = dense_state(args, src, device, torch.float64, grp)
             sampled.append(sample_onto_lines(ds, sd.lines, grp))
     # the reference schema is X,Y,Z, distance_from_seed, <vars>
     # (sampleStreamlines.cpp:145,203): signed arclength, zero at the seed

@@ -123,7 +123,7 @@ def main(args: dict) -> None:
         ds = DenseAmrState.coarse_only(meta, src.names, src.fabs, device,
                                        torch.float64)
     else:
-        ds = dense_state(args, src, device, torch.float64)
+        ds = dense_state(args, src, device, torch.float64, load)
     seeds, get_elts = get_seeds(pp, sess)
     if pp.contains("bounds"):
         # limit seed points to a physical sub-box, dropping elements that

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from peleanalysis_tpu_torch import cli
+from peleanalysis_tpu_torch import cli, telemetry
 from peleanalysis_tpu_torch import config as port_config
 from peleanalysis_tpu_torch.amr.dense import DenseAmrState
+from peleanalysis_tpu_torch.amr.hierarchy import load_plotfile_fabs
 from peleanalysis_tpu_torch.geom.marching_cubes import (DeferredSurface,
                                                         extract_isosurface)
 from peleanalysis_tpu_torch.io.mef import read_mef
@@ -548,6 +549,131 @@ def test_session_rewrite_evicts_stale_state(tmp_path):
     assert float(s.dense(st2, "cpu", torch.float64).data[0][0, 0, 0, 0]) \
         == 2.0
     assert len(s._states) == 1 and len(s._dense) == 1
+
+
+def cells(path) -> int:
+    r = PlotfileReader(path)
+    return sum(b.size for lev in range(r.meta.finest_level + 1)
+               for b in r.box_array(lev))
+
+
+def counted(s, argv):
+    """Run ``argv`` in ``s``: the read and host-cache counters it moved."""
+    before = telemetry.counters()
+    assert cli.main(argv, session=s) == 0
+    after = telemetry.counters()
+    return {k.split(".")[-1]: after.get(k, 0) - before.get(k, 0)
+            for k in ("session.host_hit", "session.host_miss",
+                      "read.bytes")}
+
+
+def test_stats_requests_read_a_missing_comp_once(plt, tmp_path,
+                                                 monkeypatch):
+    """conditionalMean and jpdf of one file load through the session's
+    host cache: the first extends the isosurface's entry by the comp it
+    lacks, the later ones read nothing.  Every output equals the run
+    without a session, the isosurface's float64 state keeps exactly its
+    two comps, and no float32 state stays."""
+    monkeypatch.chdir(tmp_path)
+    n = 8 * cells(plt)
+    iso = ["isosurface", f"infile={plt}", "isoCompName=temp", "isoVal=800",
+           "comps=density", D]
+    cm = ["conditionalMean", f"infile={plt}", "binComp=temp",
+          "avgComps=density progress", "nBins=16", "binMin=300",
+          "binMax=1800", D]
+    jpdf = ["jpdf", f"infile={plt}", "vars=temp progress", "nBins=16",
+            "useminmax1=300 1800", "useminmax2=0 1", "output_gnuplot=1",
+            "output_plotfile=0", D]
+    s = Session()
+    assert counted(s, iso + ["outfile_base=iso0"]) == {
+        "host_hit": 0, "host_miss": 1, "bytes": 2 * n}
+    got = [counted(s, cm + [f"outfile=cm{i}.dat"]) for i in range(2)]
+    got.append(counted(s, jpdf + ["outSuffix=_hostcache"]))
+    assert got == [{"host_hit": 0, "host_miss": 1, "bytes": n}] + [
+        {"host_hit": 1, "host_miss": 0, "bytes": 0}] * 2
+    assert counted(s, iso + ["outfile_base=iso1"]) == {
+        "host_hit": 1, "host_miss": 0, "bytes": 0}
+    # the isosurface's state on the card, as it was before the stats
+    assert [key[2] for key in s._dense] == [torch.float64]
+    (ds,) = s._dense.values()
+    assert ds.names == ["temp", "density"]
+    ref = DenseAmrState.from_plotfile(plt, "cpu", names=["temp", "density"],
+                                      dtype=torch.float64)
+    assert [d.shape for d in ds.data] == [d.shape for d in ref.data]
+    assert cli.main(cm + ["outfile=cm_file.dat"]) == 0
+    assert cli.main(jpdf + ["outSuffix=_hostcache_file"]) == 0
+    assert cli.main(iso + ["outfile_base=iso_file"]) == 0
+    for out in ("cm0.dat", "cm1.dat"):
+        assert_same("cm_file.dat", out)
+    assert_same(plt + "_hostcache_file", plt + "_hostcache")
+    for out in ("iso0.mef", "iso1.mef"):
+        assert_same("iso_file.mef", out)
+
+
+@pytest.mark.parametrize("names,view", [
+    (["temp", "density", "progress"], True), (["temp", "progress"], True),
+    (["progress", "temp"], False)])
+def test_host_load_views_the_cached_fabs(plt, names, view):
+    """A cache="host" load is a new object holding exactly the comps asked
+    for, equal to a fresh read of them: views of the cached entry's FABs
+    where the comps step evenly through it, copies otherwise."""
+    s = Session()
+    ent = s.load(plt, names=["temp", "density", "progress"])
+    got = s.load(plt, names=names, cache="host")
+    assert got is not ent and got.names == names
+    _, _, ref = load_plotfile_fabs(plt, names)
+    for got_lev, ref_lev, ent_lev in zip(got.fabs, ref, ent.fabs):
+        for a, b, e in zip(got_lev, ref_lev, ent_lev):
+            np.testing.assert_array_equal(a, b)
+            assert np.shares_memory(a, e) == view
+
+
+def test_stats_request_rereads_a_rewritten_plotfile(tmp_path, monkeypatch):
+    """A plotfile rewritten between two conditionalMean requests is read
+    again, and the second output is the new file's."""
+    monkeypatch.chdir(tmp_path)
+    p = str(tmp_path / "plt_rw")
+
+    def write(scale):
+        write_synthetic_plotfile(p, n_cell=8, n_levels=1, fields={
+            "temp": lambda x, y, z: 300.0 + 1500.0 * x,
+            "density": lambda x, y, z: scale * (1.0 + y)})
+
+    cm = ["conditionalMean", f"infile={p}", "binComp=temp",
+          "avgComps=density", "nBins=8", "binMin=300", "binMax=1800", D]
+    s = Session()
+    write(1.0)
+    assert counted(s, cm + ["outfile=a.dat"])["host_miss"] == 1
+    write(2.0)
+    os.utime(os.path.join(p, "Header"), (1.0, 1.0))
+    assert counted(s, cm + ["outfile=b.dat"]) == {
+        "host_hit": 0, "host_miss": 1, "bytes": 2 * 8 * cells(p)}
+    assert cli.main(cm + ["outfile=b_file.dat"]) == 0
+    assert_same("b_file.dat", "b.dat")
+    with open("a.dat", "rb") as fa, open("b.dat", "rb") as fb:
+        assert fa.read() != fb.read()
+    assert len(s._states) == 1
+
+
+def test_two_file_conditional_mean_stays_uncached(plt, tmp_path,
+                                                  monkeypatch):
+    """A series of two files in a session inserts no entry and keeps no
+    state, and its second file is read on the read-ahead thread."""
+    monkeypatch.chdir(tmp_path)
+    s = Session()
+    telemetry.start()
+    try:
+        assert cli.main(["conditionalMean", f"infiles={plt} {plt}",
+                         "binComp=temp", "avgComps=density", "nBins=8",
+                         "binMin=300", "binMax=1800", "outfile=cm.dat", D],
+                        session=s) == 0
+    finally:
+        rec = telemetry.stop()
+    assert s._states == {} and s._dense == {}
+    threads = [sp["thread"] for sp in rec["spans"]
+               if sp["name"] == "read.plotfile"]
+    assert len(threads) == 2
+    assert any(t.startswith("pele-prefetch") for t in threads)
 
 
 def test_unused_write_key_warns_outside_a_session(plt, tmp_path, capsys):

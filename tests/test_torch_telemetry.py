@@ -156,10 +156,11 @@ def test_worker_threads_carry_the_pipeline_request(traced):
 
 def test_read_and_session_counters_of_the_pipeline(traced, plt):
     c = traced["counters"]
-    # curvature reads temp and density; conditionalMean's two uncached
-    # reads take three comps each, jpdf's two (progress is not cached)
+    # curvature reads temp and density; conditionalMean's series of two
+    # files reads three comps each, uncached; jpdf's single file extends
+    # curvature's cached read by progress alone
     assert c["read.plotfiles"] == 4
-    assert c["read.bytes"] == 8 * cells(plt) * (2 + 3 + 3 + 2)
+    assert c["read.bytes"] == 8 * cells(plt) * (2 + 3 + 3 + 1)
     assert c["session.host_miss"] == 4 and c["session.host_hit"] == 1
     # isosurface takes curvature's registered output as it is
     assert c["session.dense_build"] == 4 and c["session.dense_hit"] == 1
@@ -204,17 +205,20 @@ def test_second_conditional_mean_moves_session_counters(plt, tmp_path,
                         "dense_build": 1, "read.bytes": 2 * n}
     assert run(iso) == {"host_hit": 1, "host_miss": 0, "dense_hit": 1,
                         "dense_build": 0, "read.bytes": 0}
-    # the stats tools load uncached (cache=False): the cached comps are
-    # served, their float32 state is built anew each time and not kept
+    # the stats tools load through the host cache (cache="host"): the
+    # cached comps are served, their float32 state is built anew each
+    # time and not kept
     for _ in range(2):
         assert run(cm("density")) == {"host_hit": 1, "host_miss": 0,
                                       "dense_hit": 0, "dense_build": 1,
                                       "read.bytes": 0}
-    # a comp the entry lacks: a fresh, uncached read each time
-    for _ in range(2):
-        assert run(cm("progress")) == {"host_hit": 0, "host_miss": 1,
-                                       "dense_hit": 0, "dense_build": 1,
-                                       "read.bytes": 2 * n}
+    # a comp the entry lacks: read once, the entry extended by it alone
+    assert run(cm("progress")) == {"host_hit": 0, "host_miss": 1,
+                                   "dense_hit": 0, "dense_build": 1,
+                                   "read.bytes": n}
+    assert run(cm("progress")) == {"host_hit": 1, "host_miss": 0,
+                                   "dense_hit": 0, "dense_build": 1,
+                                   "read.bytes": 0}
 
 
 def test_server_request_spans_and_counter(plt, tmp_path, monkeypatch):
