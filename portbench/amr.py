@@ -153,11 +153,25 @@ def cell_centres(h: Hierarchy, lev: int) -> List[np.ndarray]:
             for d in range(3)]
 
 
+def fab_header(b: Box, nc: int) -> bytes:
+    """The text line that opens a box's FAB record."""
+    return f"{FAB_F64}{box_str(b)} {nc}\n".encode("ascii")
+
+
+def level_bytes(bs: List[Box], nc: int) -> int:
+    """Bytes of a level's FAB records: each box's header and its float64
+    payload."""
+    return sum(len(fab_header(b, nc)) + 8 * nc * int(np.prod(box_shape(b)))
+               for b in bs)
+
+
 def write_plotfile(path: str, h: Hierarchy, names: Sequence[str],
-                   level_payloads, time: float = 0.0) -> None:
-    """A float64 plotfile of ``h``: ``level_payloads[lev]`` is a host
-    buffer holding every box of the level in turn, each box's
-    ``[comp, k, j, i]`` payload contiguous (the FAB order)."""
+                   level_pieces, time: float = 0.0) -> None:
+    """A float64 plotfile of ``h``.  ``level_pieces[lev]`` yields the
+    level's data in pieces ``(c0, c1, payload)``: components ``c0`` to
+    ``c1 - 1`` of every box, a host buffer holding every box in turn, each
+    box's ``[comp, k, j, i]`` contiguous (the FAB order).  The pieces
+    cover every component once, in any order."""
     os.makedirs(path, exist_ok=True)
     nc = len(names)
     with open(os.path.join(path, "Header"), "w") as f:
@@ -185,34 +199,58 @@ def write_plotfile(path: str, h: Hierarchy, names: Sequence[str],
             f.write(f"Level_{lev}/Cell\n")
     for lev, bs in enumerate(h.boxes):
         _write_level(os.path.join(path, f"Level_{lev}"), bs, nc,
-                     level_payloads[lev])
+                     level_pieces[lev])
 
 
-def _write_level(dirname: str, bs: List[Box], nc: int, payload) -> None:
+def _write_level(dirname: str, bs: List[Box], nc: int, pieces) -> None:
+    """Each piece's slice of a box goes straight to its place in the box's
+    record, whose offset follows from the boxes before it; the min/max
+    tables fill as the pieces arrive."""
     os.makedirs(dirname, exist_ok=True)
-    flat = np.ascontiguousarray(payload).reshape(-1)
-    entries, mins, maxs, at = [], [], [], 0
-    for first in range(0, len(bs), FABS_PER_FILE):
-        fname = f"Cell_D_{first // FABS_PER_FILE:05d}"
-        with open(os.path.join(dirname, fname), "wb") as f:
-            for b in bs[first: first + FABS_PER_FILE]:
-                n = nc * int(np.prod(box_shape(b)))
-                block = flat[at: at + n]
-                entries.append((fname, f.tell()))
-                f.write(f"{FAB_F64}{box_str(b)} {nc}\n".encode("ascii"))
+    recs, at = [], {}
+    for i, b in enumerate(bs):
+        fname = f"Cell_D_{i // FABS_PER_FILE:05d}"
+        off = at.get(fname, 0)
+        head = fab_header(b, nc)
+        n = int(np.prod(box_shape(b)))
+        recs.append((fname, off, head, n))
+        at[fname] = off + len(head) + 8 * nc * n
+    mins = np.empty((len(bs), nc))
+    maxs = np.empty((len(bs), nc))
+    files = {}
+    try:
+        for c0, c1, payload in pieces:
+            flat = np.ascontiguousarray(payload).reshape(-1)
+            k, p = c1 - c0, 0
+            for i, (fname, off, head, n) in enumerate(recs):
+                f = files.get(fname)
+                if f is None:
+                    f = files[fname] = open(os.path.join(dirname, fname),
+                                            "wb")
+                block = flat[p: p + k * n]
+                if c0 == 0:
+                    f.seek(off)
+                    f.write(head)
+                else:
+                    f.seek(off + len(head) + 8 * c0 * n)
                 f.write(memoryview(block))
-                mins.append(block.reshape(nc, -1).min(axis=1))
-                maxs.append(block.reshape(nc, -1).max(axis=1))
-                at += n
-            # on disk before the window opens: the kernel's write-back of a
-            # run's gigabyte of inputs would otherwise land inside it
+                mins[i, c0:c1] = block.reshape(k, -1).min(axis=1)
+                maxs[i, c0:c1] = block.reshape(k, -1).max(axis=1)
+                p += k * n
+        # on disk before the window opens: the kernel's write-back of a
+        # run's gigabyte of inputs would otherwise land inside it
+        for f in files.values():
             f.flush()
             os.fsync(f.fileno())
+    finally:
+        for f in files.values():
+            f.close()
     with open(os.path.join(dirname, "Cell_H"), "w") as f:
         f.write(f"1\n1\n{nc}\n0\n({len(bs)} 0\n")
         f.write("".join(box_str(b) + "\n" for b in bs))
         f.write(f")\n{len(bs)}\n")
-        f.write("".join(f"FabOnDisk: {fn} {off}\n" for fn, off in entries))
+        f.write("".join(f"FabOnDisk: {fn} {off}\n"
+                        for fn, off, _, _ in recs))
         for table in (mins, maxs):
             f.write(f"\n{len(bs)},{nc}\n")
             f.write("".join(",".join(repr(float(v)) for v in row) + ",\n"

@@ -28,17 +28,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     a = ap.parse_args(argv)
     sys.path[0] = ROOT
-    from portbench.run import caches
+    from portbench.run import caches, narrow_cards
+    from portbench.spec import Cell, load_benchmark
     caches()
+    cell = Cell(load_benchmark(), a.workload)
+    narrow_cards(cell.chips)
     import torch
 
     from portbench.harness import run_cell
-    from portbench.spec import Cell, load_benchmark
 
-    if not torch.cuda.is_available():
-        print("control.py needs a CUDA card", file=sys.stderr)
+    if not torch.cuda.is_available() or \
+            torch.cuda.device_count() < cell.chips:
+        print(f"control.py needs {cell.chips} CUDA card(s)", file=sys.stderr)
         return 3
-    cell = Cell(load_benchmark(), a.workload)
     for seed in a.seeds:
         t0 = time.time()
         out = run_cell(cell, seed, a.seconds, False, "cuda",

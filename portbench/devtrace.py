@@ -1,12 +1,14 @@
 """The device trace of a traced window, and its reduction.
 
 ``Tracer`` runs ``torch.profiler`` (CUPTI on the card) over the window and
-keeps the device's own events (kernels, copies, memsets) and the
-program's ``isosurface.<stage>`` ranges, moved onto this process's
-``time.perf_counter`` clock by a mark taken on the main thread at the
-window's start.  The reduction gives the busy time (the union of the
-device intervals), the device operations that took most time and the
-idle gaps by what the host was doing.
+keeps the device's own events (kernels, copies, memsets) with the card each
+ran on, and the program's ``isosurface.<stage>`` ranges, moved onto this
+process's ``time.perf_counter`` clock by a mark taken on the main thread at
+the window's start.  The reduction gives each card's busy time (the union
+of its device intervals) and their mean, the device operations that took
+most time and the idle gaps by what the host was doing, each card's and
+their sum.  A trace measures every visible card, also one on which nothing
+ran.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from . import cards
 
 MARK = "portbench.window"
 
@@ -27,7 +31,7 @@ class Tracer:
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-            torch.cuda.synchronize()
+        cards.sync()
         self.prof = torch.profiler.profile(activities=acts)
         self.prof.start()
         with torch.profiler.record_function(MARK):
@@ -35,8 +39,10 @@ class Tracer:
         return self.t0
 
     def stop(self) -> dict:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        """The window's record: ``device`` holds ``[name, start, end]`` of
+        each device operation and ``device_card`` the card it ran on, item
+        for item; ``cards`` is the number of cards measured."""
+        cards.sync()
         t1 = time.perf_counter()
         self.prof.stop()
         evs = list(self.prof.profiler.kineto_results.events())
@@ -46,7 +52,7 @@ class Tracer:
         # a host range (record_function) is mirrored on the device's
         # timeline: only the device's own operations count
         host_names = {e.name() for e in evs if e.device_type() != cuda}
-        device, ranges = [], []
+        device, card, ranges = [], [], []
         for e in evs:
             if off is None:
                 break
@@ -55,11 +61,13 @@ class Tracer:
             if e.device_type() == cuda:
                 if e.name() not in host_names:
                     device.append([e.name(), s, t])
+                    card.append(e.device_index())
             elif e.name().startswith("isosurface."):
                 ranges.append([e.name(), s, t])
         self.prof = None
-        return {"window": [self.t0, t1], "device": device, "ranges": ranges,
-                "aligned": off is not None}
+        return {"window": [self.t0, t1], "device": device,
+                "device_card": card, "cards": len(cards.visible()),
+                "ranges": ranges, "aligned": off is not None}
 
 
 def union(intervals: List[Tuple[float, float]], lo: float,
@@ -76,10 +84,29 @@ def union(intervals: List[Tuple[float, float]], lo: float,
     return out
 
 
-def busy_s(tr: dict) -> float:
+def _by_card(tr: dict) -> List[List[Tuple[float, float]]]:
+    """Each measured card's device intervals.  A trace without
+    ``device_card`` ran on one card."""
+    idx = tr.get("device_card") or [0] * len(tr["device"])
+    n = max([tr.get("cards", 1), 1] + [c + 1 for c in idx])
+    out = [[] for _ in range(n)]
+    for (_, s, t), c in zip(tr["device"], idx):
+        out[c].append((s, t))
+    return out
+
+
+def busy_by_card(tr: dict) -> List[float]:
+    """Seconds of the window in which an operation ran on each card."""
     lo, hi = tr["window"]
-    return sum(t - s for s, t in union([(s, t) for _, s, t in tr["device"]],
-                                       lo, hi))
+    return [sum((t - s for s, t in union(ivs, lo, hi)), 0.0)
+            for ivs in _by_card(tr)]
+
+
+def busy_s(tr: dict) -> float:
+    """The cards' mean busy seconds: one minus it over the window is the
+    share of card-seconds left idle."""
+    per = busy_by_card(tr)
+    return sum(per) / len(per)
 
 
 def is_kernel(name: str) -> bool:
@@ -95,17 +122,38 @@ def device_ops(tr: dict, n: int = 10) -> List[list]:
         if t > s:
             key = name if len(name) <= 120 else name[:117] + "..."
             tot[key] = tot.get(key, 0.0) + (t - s)
-    return [[k, v] for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:n]]
+    return _top(tot, n)
 
 
 def idle_gaps(tr: dict, spans: Dict[str, List[List[float]]],
               n: int = 10) -> List[list]:
-    """Idle seconds of the device in the window, by what the host was
-    doing: each stretch of idle time goes to the innermost host span (a
-    stage, a read, a write, an isosurface range) covering it, ``host``
-    where none does."""
+    """Idle seconds of the cards in the window, by what the host was
+    doing: each stretch of a card's idle time goes to the innermost host
+    span (a stage, a read, a write, an isosurface range) covering it,
+    ``host`` where none does; summed over the cards."""
+    tot: Dict[str, float] = {}
+    for ivs in _by_card(tr):
+        for k, v in _idle_by_span(tr, ivs, spans).items():
+            tot[k] = tot.get(k, 0.0) + v
+    return _top(tot, n)
+
+
+def idle_gaps_by_card(tr: dict, spans: Dict[str, List[List[float]]],
+                      n: int = 10) -> List[List[list]]:
+    """``idle_gaps`` of each card alone."""
+    return [_top(_idle_by_span(tr, ivs, spans), n) for ivs in _by_card(tr)]
+
+
+def _top(tot: Dict[str, float], n: int) -> List[list]:
+    return [[k, v] for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def _idle_by_span(tr: dict, intervals: List[Tuple[float, float]],
+                  spans: Dict[str, List[List[float]]]) -> Dict[str, float]:
+    """The window's idle seconds between one card's ``intervals``, by the
+    innermost span over each stretch."""
     lo, hi = tr["window"]
-    busy = union([(s, t) for _, s, t in tr["device"]], lo, hi)
+    busy = union(intervals, lo, hi)
     gaps, prev = [], lo
     for s, t in busy:
         if s > prev:
@@ -128,4 +176,4 @@ def idle_gaps(tr: dict, spans: Dict[str, List[List[float]]],
             key = min(inner, key=lambda x: x[2] - x[1])[0] if inner \
                 else "host"
             tot[key] = tot.get(key, 0.0) + (b - a)
-    return [[k, v] for k, v in sorted(tot.items(), key=lambda kv: -kv[1])[:n]]
+    return tot

@@ -11,6 +11,9 @@ the program's ``send_command(..., sync=True)`` until ``seconds`` have
 passed.  Its window starts and ends with a signal, on which the server
 resets and reads its peak device memory and, in a traced run, starts and
 stops the profiler.
+
+Both synchronise every visible card at the window's start and end, and
+reset and read each card's peak (``cards.py``).
 """
 from __future__ import annotations
 
@@ -25,27 +28,10 @@ import time
 import traceback
 from typing import List
 
-import torch
-
-from . import traffic as tg
+from . import cards, traffic as tg
 from .hooks import Hooks, import_tools
 from .spec import root
 from .devtrace import Tracer
-
-
-def cuda_sync() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-
-
-def _peak_reset() -> None:
-    if torch.cuda.is_available():
-        torch.cuda.reset_peak_memory_stats()
-
-
-def _peak() -> int:
-    return torch.cuda.max_memory_allocated() if torch.cuda.is_available() \
-        else 0
 
 
 def _stage_tools(tr: dict) -> List[str]:
@@ -80,8 +66,8 @@ def series(tr: dict, plts: List[str], work: str, seconds: float,
     jobs = tg.series_jobs(tr, plts, os.path.join(work, "out"), extra)
     hk = Hooks(hooks).install() if trace else None
     tracer = Tracer() if trace else None
-    cuda_sync()
-    _peak_reset()
+    cards.sync()
+    cards.reset_peaks()
     setup_end = clock()
     t0 = tracer.start() if trace else time.perf_counter()
     done, dur = [], []
@@ -94,16 +80,18 @@ def series(tr: dict, plts: List[str], work: str, seconds: float,
             te = time.perf_counter()
             done.append((job, rc, te))
             dur.append(te - ts)
-        cuda_sync()
+        cards.sync()
         t1 = time.perf_counter()
         tr_rec = tracer.stop() if trace else None
     finally:
         if hk is not None:
             hk.uninstall()
     ok = sum(1 for _, rc, _ in done if rc == 0)
+    peaks = cards.peaks()
     return {"setup_end": setup_end, "window_s": t1 - t0,
             "attempted": len(done), "failed": len(done) - ok, "jobs": ok,
-            "done": done, "durations": dur, "peak_bytes": _peak(),
+            "done": done, "durations": dur,
+            "peak_bytes": max(peaks, default=0), "peak_by_card": peaks,
             "trace": tr_rec,
             "hooks": hk.record() if hk else {"spans": {}, "calls": {}},
             "kinds": {"pipeline": ok}}
@@ -211,6 +199,7 @@ def explore(tr: dict, seed: int, plt: str, work: str, seconds: float,
             "jobs": len(ok), "done": done, "latencies": lat,
             "durations": lat,
             "peak_bytes": rec.get("peak_window", 0),
+            "peak_by_card": rec.get("peak_by_card", []),
             "trace": rec.get("trace"),
             "hooks": rec.get("hooks", {"spans": {}, "calls": {}}),
             "kinds": kinds, "server_modules": rec.get("forbidden", [])}

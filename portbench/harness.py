@@ -8,13 +8,14 @@ import shutil
 import statistics
 import sys
 import tempfile
-from typing import Callable, Dict, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from . import drive, gen
-from .devtrace import busy_s, device_ops, idle_gaps
+from .devtrace import busy_by_card, busy_s, device_ops, idle_gaps
 from .judge import States, evaluate, free, verdict
 from .serve_child import forbidden_modules
 from .spec import Cell, load_metric
@@ -38,12 +39,15 @@ E2E: Dict[str, Callable] = {
 }
 
 
-def device_info(device: str, peak: int) -> dict:
-    if device == "cuda":
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                "count": 1, "memory_peak_bytes": int(peak)}
-    return {"platform": "cpu", "kind": "cpu", "count": 1,
-            "memory_peak_bytes": int(peak)}
+def device_info(device: str, peaks: List[int]) -> dict:
+    """The result line's ``device``: the cards measured, the fullest
+    card's peak and each card's."""
+    by_card = [int(p) for p in peaks] or [0]
+    return {"platform": "gpu" if device == "cuda" else "cpu",
+            "kind": torch.cuda.get_device_name(0) if device == "cuda"
+            else "cpu",
+            "count": len(by_card), "memory_peak_bytes": max(by_card),
+            "memory_peak_bytes_by_card": by_card}
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
@@ -66,7 +70,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     try:
         plts = [os.path.join(work, "in", f"plt{m:02d}")
                 for m in range(int(tr["plotfiles"]))]
+        need = gen.input_bytes(cfg, len(plts))
+        gen.check_room(need, work)
+        t0 = time.perf_counter()
         h = gen.write_inputs(cfg, seed, plts, device)
+        print(f"portbench: inputs {need} B of FAB records in {len(plts)} "
+              f"plotfile(s), written in {time.perf_counter() - t0:.3f} s",
+              file=sys.stderr)
         if device == "cuda":
             torch.cuda.empty_cache()
         if tr["kind"] == "series":
@@ -94,10 +104,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         units = cell.units()
         out["metrics"] = {k: {"value": v, "unit": units[k]}
                           for k, v in vals.items()}
-        out["device"] = device_info(device, rec["peak_bytes"])
+        out["device"] = device_info(device, rec["peak_by_card"])
         if trace and rec.get("trace"):
             t = rec["trace"]
             out["device"]["busy_s"] = busy_s(t)
+            out["device"]["busy_s_by_card"] = busy_by_card(t)
             out["device"]["window_s"] = t["window"][1] - t["window"][0]
             out["breakdown"] = {"device_ops": device_ops(t),
                                 "idle_gaps": idle_gaps(

@@ -11,9 +11,11 @@ the plain reference, and prints one JSON object as the last line of
 standard output: the cell's end-to-end metrics (``--trace 0``) or its
 per-layer metrics (``--trace 1``, with the device's busy time and a
 breakdown), and last the numbers compared, each beside its limit (also the
-last lines of standard error).  It exits non-zero, printing no result,
-without enough CUDA cards, when the program is missing, or when a JAX
-module is loaded once the window has closed.
+last lines of standard error).  The run sees the cell's ``chips`` cards and
+no others (``narrow_cards``) and measures each of them.  It exits non-zero,
+printing no result, without enough CUDA cards (3), when the program is
+missing (4), when a JAX module is loaded once the window has closed (5), or
+when the inputs would not fit on the disk under ``TMPDIR`` (6).
 """
 from __future__ import annotations
 
@@ -57,6 +59,16 @@ def caches() -> None:
     os.environ["OMP_NUM_THREADS"] = "1"
 
 
+def narrow_cards(chips: int) -> None:
+    """Let this process and its children see the first ``chips`` cards of
+    those visible (of ``CUDA_VISIBLE_DEVICES`` where it is set).  Before
+    CUDA starts: ``torch.cuda.device_count()`` may keep its first answer."""
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = [str(i) for i in range(chips)] if vis is None else \
+        [x.strip() for x in vis.split(",") if x.strip()]
+    os.environ["CUDA_VISIBLE_DEVICES"] = ",".join(ids[:chips])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
@@ -67,12 +79,15 @@ def main(argv=None) -> int:
     caches()
     # the checkout, not this directory, is where modules are found
     sys.path[0] = ROOT
-    import torch
-
-    from portbench.harness import forbidden_modules, report, run_cell
     from portbench.spec import Cell, load_benchmark
 
     cell = Cell(load_benchmark(), a.workload)
+    narrow_cards(cell.chips)
+    import torch
+
+    from portbench.gen import NoRoom
+    from portbench.harness import forbidden_modules, report, run_cell
+
     if not torch.cuda.is_available() or \
             torch.cuda.device_count() < cell.chips:
         print(f"portbench: {a.workload} needs {cell.chips} CUDA card(s); "
@@ -84,8 +99,12 @@ def main(argv=None) -> int:
     except ImportError as e:
         print(f"portbench: the program is missing: {e}", file=sys.stderr)
         return 4
-    out = run_cell(cell, a.seed, a.seconds, bool(a.trace), "cuda",
-                   lambda: time.time() - T_START)
+    try:
+        out = run_cell(cell, a.seed, a.seconds, bool(a.trace), "cuda",
+                       lambda: time.time() - T_START)
+    except NoRoom as e:
+        print(f"portbench: {e}", file=sys.stderr)
+        return 6
     bad = sorted(set(forbidden_modules()) | set(out.pop("server_modules")))
     if bad:
         print(f"portbench: JAX modules loaded: {bad}", file=sys.stderr)

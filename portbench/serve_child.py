@@ -2,9 +2,10 @@
 ``python -m peleanalysis_tpu_torch serve`` through ``cli.main``, with the
 benchmark's window signals.
 
-SIGUSR1 starts the window: the peak device memory is reset and, in a
-traced run, the profiler and the metrics' hooks start.  SIGUSR2 ends it:
-the window's peak is read and the trace taken.  Both run on the main
+SIGUSR1 starts the window: every visible card is synchronised, each
+card's peak device memory reset and, in a traced run, the profiler and the
+metrics' hooks start.  SIGUSR2 ends it: the cards are synchronised, each
+card's peak read and the trace taken.  Both run on the main
 thread, between commands.  When the server shuts down, the record (peak,
 trace, hooks, and any JAX module this process holds) goes to
 ``--record`` as JSON.
@@ -20,6 +21,10 @@ import os
 import signal
 import sys
 
+from . import cards
+from .devtrace import Tracer
+from .hooks import Hooks
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "peleanalysis_tpu")
 
 
@@ -30,6 +35,38 @@ def forbidden_modules() -> list:
                    if m.split(".")[0] in FORBIDDEN})
 
 
+class Window:
+    """The server's window, opened and closed by the signals: every
+    visible card synchronised, each card's peak reset at the start and
+    read at the end (the fullest card's is ``peak_window``), and in a
+    traced run the profiler and the metrics' hooks."""
+
+    def __init__(self, hooks: list, trace: bool):
+        self.hooks, self.trace = hooks, trace
+        self.state = {"peak_window": 0, "peak_by_card": [], "trace": None,
+                      "hooks": None}
+        self.live = {}
+
+    def start(self, signum=None, frame=None) -> None:
+        cards.sync()
+        cards.reset_peaks()
+        if self.trace:
+            self.live["hooks"] = Hooks(self.hooks).install()
+            self.live["tracer"] = Tracer()
+            self.live["tracer"].start()
+
+    def stop(self, signum=None, frame=None) -> None:
+        if self.trace and "tracer" in self.live:
+            self.state["trace"] = self.live.pop("tracer").stop()
+            hk = self.live.pop("hooks")
+            hk.uninstall()
+            self.state["hooks"] = hk.record()
+        cards.sync()
+        peaks = cards.peaks()
+        self.state["peak_by_card"] = peaks
+        self.state["peak_window"] = max(peaks, default=0)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--socket", required=True)
@@ -38,40 +75,16 @@ def main() -> int:
     ap.add_argument("--trace", type=int, default=0)
     a = ap.parse_args()
 
-    import torch
     from peleanalysis_tpu_torch import cli
-
-    from .hooks import Hooks
-    from .devtrace import Tracer
 
     hooks = []
     if a.hooks:
         with open(a.hooks) as f:
             hooks = json.load(f)
-    state = {"peak_window": 0, "trace": None, "hooks": None}
-    live = {}
-
-    def start(signum, frame):
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        if a.trace:
-            live["hooks"] = Hooks(hooks).install()
-            live["tracer"] = Tracer()
-            live["tracer"].start()
-
-    def stop(signum, frame):
-        if a.trace and "tracer" in live:
-            state["trace"] = live.pop("tracer").stop()
-            hk = live.pop("hooks")
-            hk.uninstall()
-            state["hooks"] = hk.record()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-            state["peak_window"] = torch.cuda.max_memory_allocated()
-
-    signal.signal(signal.SIGUSR1, start)
-    signal.signal(signal.SIGUSR2, stop)
+    win = Window(hooks, bool(a.trace))
+    signal.signal(signal.SIGUSR1, win.start)
+    signal.signal(signal.SIGUSR2, win.stop)
+    state = win.state
     try:
         rc = cli.main(["serve", f"socket={a.socket}", "idle_timeout=0"])
     finally:
