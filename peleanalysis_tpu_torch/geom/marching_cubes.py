@@ -787,16 +787,19 @@ def extract_isosurface_windows(windows, iso_name: str, iso_val: float,
     (``parallel/dense_shard.py`` ``ShardedDenseState`` with
     ``ISO_HALO``): each window, built on its shard's device when visited,
     emits the triangles of the dual cells its shard owns; the runs merge
-    by global node key and dual-cell order into the unsharded run's MEF."""
+    by global node key and dual-cell order into the unsharded run's MEF
+    (spans ``shard.run`` a window, ``shard.merge``)."""
     results, cells = [], []
     for s, win in windows:
-        mef, keys, cell = extract_isosurface_enum(
-            win, iso_name, iso_val, extra_names, bc, label,
-            window=windows.window_info(s))
+        with span("shard.run"):
+            mef, keys, cell = extract_isosurface_enum(
+                win, iso_name, iso_val, extra_names, bc, label,
+                window=windows.window_info(s))
         results.append((mef, keys))
         cells.append(cell)
         del win
-    return _merge_runs(results, label, cells)
+    with span("shard.merge"):
+        return _merge_runs(results, label, cells)
 
 
 def check_engine(classify: str) -> None:

@@ -61,6 +61,7 @@ from ..amr.dense import (DenseAmrState, DenseLevelMeta, PlotfileRecords,
 from ..amr.geometry import Geometry
 from ..amr.hierarchy import AmrMeta, _periodic_shifts
 from ..ops.dense_fill import interp_stencil
+from ..telemetry import count, span
 from .mesh import Mesh, shard_devices
 
 SPATIAL_AXES = ("x", "y", "z")
@@ -414,43 +415,72 @@ class ShardedDenseState:
     def window(self, s: int) -> DenseAmrState:
         """Shard s's window as a dense state on its device: each level
         assembled on the host from the boxes (and periodic images) that
-        meet it, copied once; its in-level and covered masks the global
-        ones."""
+        meet it (span ``shard.assemble``), then every level copied once
+        (``shard.h2d``); its in-level and covered masks the global ones.
+        Counts ``shard.windows``, ``shard.window_cells`` (every level's
+        window, halo included), ``shard.owned_cells`` and
+        ``shard.h2d_bytes`` (nothing on the CPU)."""
         plan = self.plans[s]
         meta = self.meta
         dev = self.mesh.devices[s]
         np_dt = _np_dtype(self.dtype)
         L = plan.n_levels
         geoms = [self._geometry(plan, lev) for lev in range(L)]
-        bas, data, inlev = [], [], []
-        for lev in range(L):
-            w = plan.windows[lev]
-            host = np.zeros((len(self.names),) + w.shape, dtype=np_dt)
-            mask = np.zeros(w.shape, dtype=bool)
-            parts = self._boxes(lev, w)
-            for i, sh, part in parts:
-                src = meta.bas[lev][i].shift(sh)
-                host[(slice(None),) + _box_slices(part, w)] = \
-                    self.fabs[lev][i][(slice(None),)
-                                      + _box_slices(part, src)]
-                mask[_box_slices(part, w)] = True
-            bas.append(BoxArray([p for _, _, p in parts]))
-            data.append(torch.from_numpy(host).to(dev))
-            inlev.append(mask)
+        bas, hosts, inlev, covered = [], [], [], []
+        with span("shard.assemble"):
+            for lev in range(L):
+                w = plan.windows[lev]
+                host = np.zeros((len(self.names),) + w.shape, dtype=np_dt)
+                mask = np.zeros(w.shape, dtype=bool)
+                parts = self._boxes(lev, w)
+                for i, sh, part in parts:
+                    src = meta.bas[lev][i].shift(sh)
+                    host[(slice(None),) + _box_slices(part, w)] = \
+                        self.fabs[lev][i][(slice(None),)
+                                          + _box_slices(part, src)]
+                    mask[_box_slices(part, w)] = True
+                bas.append(BoxArray([p for _, _, p in parts]))
+                hosts.append(host)
+                inlev.append(mask)
+                # no cell outside the global bbox is covered, as none is in
+                # the global run: its flux matching sees the bbox's edge
+                covered.append(covered_mask_over(meta, lev, w)
+                               & self._inside(self.lmeta[lev].bbox, w))
+        with span("shard.h2d"):
+            data = [torch.from_numpy(h).to(dev) for h in hosts]
+        count("shard.windows")
+        count("shard.window_cells", sum(w.size for w in plan.windows[:L]))
+        count("shard.owned_cells", self.owned_cells(s))
+        if dev.type != "cpu":
+            count("shard.h2d_bytes", sum(h.nbytes for h in hosts))
+        del hosts
         wmeta = AmrMeta(geoms, bas, list(meta.ref_ratio[: L - 1]), meta.time,
                         meta.level_steps[:L] if meta.level_steps else None,
                         meta.ndim2)
         lmeta = [DenseLevelMeta(plan.windows[lev], geoms[lev])
                  for lev in range(L)]
         ds = DenseAmrState(wmeta, self.names, data, lmeta, dev)
-        for lev in range(L):
-            ds._in_level_np[lev] = inlev[lev]
-            # no cell outside the global bbox is covered, as none is in the
-            # global run: its flux matching sees the bbox's edge there
-            ds._covered_np[lev] = covered_mask_over(meta, lev,
-                                                    plan.windows[lev]) \
-                & self._inside(self.lmeta[lev].bbox, plan.windows[lev])
+        ds._in_level_np[:L] = inlev
+        ds._covered_np[:L] = covered
         return ds
+
+    def owned_cells(self, s: int) -> int:
+        """The cells shard s answers for: of the levels' boxes inside its
+        blocks, or with ``Halo.duals`` the dual cells (lower corners over
+        each level's bbox grown by one below) it owns.  Over the shards
+        they sum to the hierarchy's cells, or to its dual cells."""
+        plan = self.plans[s]
+        n = 0
+        for lev in range(self.meta.n_levels):
+            if self.halo.duals:
+                got = self._own_region(plan.blocks, plan.duals, lev)
+                n += 0 if got is None else got.size
+                continue
+            ba, blk = self.meta.bas[lev], plan.blocks[lev]
+            ext = (np.minimum(ba.hi, blk.hi) - np.maximum(ba.lo, blk.lo)
+                   + 1).clip(min=0)
+            n += int(ext.prod(axis=1).sum())
+        return n
 
     def window_info(self, s: int) -> WindowInfo:
         """What the isosurface engine needs to keep shard s's output global
@@ -487,7 +517,11 @@ class ShardGather:
     device from each owner's part (one ``.to`` a part) and packed there.
     With ``device``: into one ``DenseAmrState`` on it (a pipeline stage's
     registered output), each shard's owned cells copied with one ``.to``
-    a level."""
+    a level.
+
+    ``add``, ``write`` and ``state`` run in the span ``shard.gather``; the
+    bytes of owned cells moved to another card or to the host count in
+    ``shard.gather_bytes``."""
 
     def __init__(self, sd: ShardedDenseState, device=None,
                  dtype=np.float64):
@@ -502,6 +536,10 @@ class ShardGather:
     def add(self, s: int, out: DenseAmrState) -> None:
         """Shard s's output over its windows (``out.data[l]`` covers
         ``windows[l]``; None where the shard computed no output)."""
+        with span("shard.gather"):
+            self._add(s, out)
+
+    def _add(self, s: int, out: DenseAmrState) -> None:
         sd, plan = self.sd, self.sd.plans[s]
         meta = sd.meta
         if self.names is None:
@@ -530,6 +568,10 @@ class ShardGather:
                     self._add_part(lev, i, b, data, w, part)
             if whole:
                 self._records.add(lev, data, w, whole)
+                if data.device.type != "cpu":
+                    count("shard.gather_bytes", self._record_bytes(
+                        data.shape[0], sum(meta.bas[lev][i].size
+                                           for i in whole)))
 
     def _add_part(self, lev, i, b, data, w, part) -> None:
         dev0 = self.sd.mesh.devices[0]
@@ -538,13 +580,20 @@ class ShardGather:
             buf = torch.empty((data.shape[0],) + b.shape, dtype=data.dtype,
                               device=dev0)
         buf[(slice(None),) + _box_slices(part, b)] = \
-            data[(slice(None),) + _box_slices(part, w)].to(dev0)
+            _moved(data[(slice(None),) + _box_slices(part, w)], dev0)
         left -= part.size
         if left:
             self._straddle[(lev, i)] = (buf, left)
             return
         self._straddle.pop((lev, i), None)
         self._records.add(lev, buf, b, [i])
+        if dev0.type != "cpu":
+            count("shard.gather_bytes", self._record_bytes(buf.shape[0],
+                                                           b.size))
+
+    def _record_bytes(self, ncomp: int, cells: int) -> int:
+        """Bytes of FAB records of ``cells`` cells copied to the host."""
+        return ncomp * cells * np.dtype(self.dtype).itemsize
 
     def _add_state(self, lev, data, w, own) -> None:
         bbox = self.sd.lmeta[lev].bbox
@@ -553,19 +602,29 @@ class ShardGather:
                 (data.shape[0],) + bbox.shape, dtype=data.dtype,
                 device=self.device)
         self._levels[lev][(slice(None),) + _box_slices(own, bbox)] = \
-            data[(slice(None),) + _box_slices(own, w)].to(self.device)
+            _moved(data[(slice(None),) + _box_slices(own, w)], self.device)
 
     def write(self, path: str) -> None:
         if self._straddle:
             raise ValueError(f"boxes {sorted(self._straddle)[:4]} only "
                              "partly gathered")
-        self._records.write(path)
+        with span("shard.gather"):
+            self._records.write(path)
 
     def state(self) -> DenseAmrState:
         """The gathered output as one state on ``device``."""
         sd = self.sd
-        return DenseAmrState(sd.meta, self.names, self._levels, sd.lmeta,
-                             self.device)
+        with span("shard.gather"):
+            return DenseAmrState(sd.meta, self.names, self._levels, sd.lmeta,
+                                 self.device)
+
+
+def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a copy to another device counts in
+    ``shard.gather_bytes``."""
+    if t.device != device:
+        count("shard.gather_bytes", t.numel() * t.element_size())
+    return t.to(device)
 
 
 def run_windows(sd: ShardedDenseState, fn: Callable[..., DenseAmrState],
@@ -580,6 +639,9 @@ def run_windows(sd: ShardedDenseState, fn: Callable[..., DenseAmrState],
             arg = sd.window(s)
         else:
             arg, windows[s] = windows[s], None
-        out.add(s, fn(arg))
+        with span("shard.run"):
+            res = fn(arg)
         del arg
+        out.add(s, res)
+        del res
     return out

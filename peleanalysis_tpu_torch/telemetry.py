@@ -29,18 +29,28 @@ Spans (layer: name):
   ``serve.request`` and its ``serve.settle`` (the ``sync`` flush);
 * read: ``read.plotfile`` (``amr/hierarchy.load_plotfile_fabs``);
 * dense assembly and ghost fill: ``assemble.host``, ``assemble.h2d``
-  (``amr/dense.py``), ``fill.dense`` (``ops/dense_fill.py``);
+  (``amr/dense.py``), ``fill.dense`` (``ops/dense_fill.py``); a shard
+  window's ``shard.assemble`` (host) and ``shard.h2d``
+  (``parallel/dense_shard.py``);
+* entry and dispatch, sharded: ``shard.run``, a tool's function on one
+  window (``run_windows``, ``extract_isosurface_windows``);
 * analysis ops: ``stats.accumulate`` (conditionalMean, jpdf);
 * marching cubes: ``isosurface.<stage>`` (``geom/marching_cubes.py``);
 * device to host and write: ``write.mef``, ``write.text``,
   ``write.plotfile``, ``writeback.wait`` (``io/fab_pack.py``'s event
-  wait), ``session.flush``.
+  wait), ``session.flush``; ``shard.gather`` (``ShardGather``: a shard's
+  owned cells moved into the output, its ``state()`` and ``write()``),
+  ``shard.merge`` (the isosurface's merge of its windows by node key).
 
 Counters: ``serve.requests``; ``read.bytes``, ``read.plotfiles``;
 ``session.host_hit``, ``session.host_miss``, ``session.dense_hit``,
 ``session.dense_build``; ``h2d.bytes``, ``d2h.bytes``; ``kernel.grad_mag``,
 ``kernel.binned``, ``kernel.joint``, ``kernel.march``,
-``kernel.order_key``.
+``kernel.order_key``; the shard windows' ``shard.windows``,
+``shard.window_cells`` (every level of a window, halo included),
+``shard.owned_cells``, ``shard.h2d_bytes`` (window copies to a card; not
+in ``h2d.bytes``) and ``shard.gather_bytes`` (owned cells moved to
+another card or to the host).
 """
 from __future__ import annotations
 
