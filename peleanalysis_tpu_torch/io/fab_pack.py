@@ -104,8 +104,9 @@ def fetch_level(packed: PackedLevel):
                        pin_memory=True)
     host.copy_(packed.flat, non_blocking=True)
     count("d2h.bytes", host.numel() * host.element_size())
+    # on the stream of the buffer's card (the copy's), not the current one
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(packed.flat.device))
 
     def wait():
         with span("writeback.wait"):

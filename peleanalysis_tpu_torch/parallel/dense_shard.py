@@ -8,11 +8,15 @@ stencils.  PyTorch has no partitioner, and a halo exchange before each of
 a curvature call's ~950 kernels would mean rewriting the tested
 single-device engine.  So each shard gets one WINDOW instead: per level,
 the cells it owns plus a halo as deep as the tool's whole chain of ghost
-fills and stencils, assembled straight from the host FABs on the shard's
-device.  The shard runs the single-device function on its window and keeps
-only its own cells.  A cell farther than the halo from a window's edge is
-computed exactly as in the global run, whatever the fill puts at that
-edge, so the files are the unsharded run's, byte for byte.
+fills and stencils.  A window is assembled from the host FABs and copied
+to the shard's device, or, when its source is an earlier stage's output
+kept sharded (:class:`ShardedOutput`, a pipeline's registered output),
+cut on the shard's device from the parts that stay on their cards: a
+neighbour's part gives a thin slab, one peer copy.  Both give the same
+window, byte for byte.  The shard runs the single-device function on its
+window and keeps only its own cells.  A cell farther than the halo from a
+window's edge is computed exactly as in the global run, whatever the fill
+puts at that edge, so the files are the unsharded run's, byte for byte.
 
 The partition (AMReX's DistributionMapping, Src/grad.cpp:160-163): the
 level-0 domain is cut into the mesh's blocks (X slabs by default,
@@ -202,18 +206,29 @@ class ShardPlan:
 
 
 class ShardedDenseState:
-    """A hierarchy (host FABs) cut into one window a shard over ``mesh``,
-    each built on its shard's device when visited (``window(s)`` or
-    iteration) and held only by the caller.  The counterpart of the JAX
-    ``shard_dense_state``."""
+    """A hierarchy cut into one window a shard over ``mesh``, each built on
+    its shard's device when visited (``window(s)`` or iteration) and held
+    only by the caller.  The counterpart of the JAX ``shard_dense_state``.
 
-    def __init__(self, meta: AmrMeta, names: Sequence[str], fabs, mesh: Mesh,
-                 halo: Halo, dtype: torch.dtype):
+    ``source``: the host FABs (``fabs[lev][i]``, the comps
+    ``source_names``, by default ``names``), or a :class:`ShardedOutput`
+    holding ``names``; the windows hold ``names`` only."""
+
+    def __init__(self, meta: AmrMeta, names: Sequence[str], source,
+                 mesh: Mesh, halo: Halo, dtype: torch.dtype,
+                 source_names: Optional[Sequence[str]] = None):
         if meta.ndim2 and "z" in mesh.axis_names:
             raise ValueError(f"mesh_shape {mesh.shape} cuts z, which a DIM=2 "
                              "plotfile does not have: give mesh_shape=a b")
         axes = [SPATIAL_AXES.index(a) for a in mesh.axis_names]
-        self.meta, self.names, self.fabs = meta, list(names), fabs
+        self.meta, self.names, self.source = meta, list(names), source
+        have = list(source.names if isinstance(source, ShardedOutput)
+                    else source_names or names)
+        # the source's comps the windows take, and as an index of the host
+        # FABs' comp axis: all of them in order, or a list
+        self._idx = [have.index(n) for n in self.names]
+        self._sel = (slice(None) if self._idx == list(range(len(have)))
+                     else self._idx)
         self.mesh, self.halo, self.dtype = mesh, halo, dtype
         self.lmeta = _level_metas(meta)
         self.cut = [False] * 3
@@ -413,47 +428,50 @@ class ShardedDenseState:
             & axes[2][None, None, :]
 
     def window(self, s: int) -> DenseAmrState:
-        """Shard s's window as a dense state on its device: each level
-        assembled on the host from the boxes (and periodic images) that
-        meet it (span ``shard.assemble``), then every level copied once
-        (``shard.h2d``); its in-level and covered masks the global ones.
-        Counts ``shard.windows``, ``shard.window_cells`` (every level's
-        window, halo included), ``shard.owned_cells`` and
-        ``shard.h2d_bytes`` (nothing on the CPU)."""
+        """Shard s's window as a dense state on its device; its in-level
+        and covered masks the global ones, computed on the host (span
+        ``shard.assemble``).  From host FABs each level is assembled on the
+        host from the boxes (and periodic images) that meet it, then every
+        level copied once (``shard.h2d``); from a :class:`ShardedOutput`
+        each level is cut on the device (``_cut``, in ``shard.assemble``;
+        counts ``shard.device_windows``).  Counts ``shard.windows``,
+        ``shard.window_cells`` (every level's window, halo included),
+        ``shard.owned_cells`` and ``shard.h2d_bytes`` (nothing on the
+        CPU)."""
         plan = self.plans[s]
         meta = self.meta
         dev = self.mesh.devices[s]
-        np_dt = _np_dtype(self.dtype)
+        resident = isinstance(self.source, ShardedOutput)
         L = plan.n_levels
         geoms = [self._geometry(plan, lev) for lev in range(L)]
-        bas, hosts, inlev, covered = [], [], [], []
+        bas, levels, inlev, covered = [], [], [], []
         with span("shard.assemble"):
             for lev in range(L):
                 w = plan.windows[lev]
-                host = np.zeros((len(self.names),) + w.shape, dtype=np_dt)
-                mask = np.zeros(w.shape, dtype=bool)
                 parts = self._boxes(lev, w)
-                for i, sh, part in parts:
-                    src = meta.bas[lev][i].shift(sh)
-                    host[(slice(None),) + _box_slices(part, w)] = \
-                        self.fabs[lev][i][(slice(None),)
-                                          + _box_slices(part, src)]
+                mask = np.zeros(w.shape, dtype=bool)
+                for _, _, part in parts:
                     mask[_box_slices(part, w)] = True
+                levels.append(self._cut(lev, w, mask, dev) if resident
+                              else self._assemble(lev, w, parts))
                 bas.append(BoxArray([p for _, _, p in parts]))
-                hosts.append(host)
                 inlev.append(mask)
                 # no cell outside the global bbox is covered, as none is in
                 # the global run: its flux matching sees the bbox's edge
                 covered.append(covered_mask_over(meta, lev, w)
                                & self._inside(self.lmeta[lev].bbox, w))
-        with span("shard.h2d"):
-            data = [torch.from_numpy(h).to(dev) for h in hosts]
+        if resident:
+            data = levels
+            count("shard.device_windows")
+        else:
+            with span("shard.h2d"):
+                data = [torch.from_numpy(h).to(dev) for h in levels]
+            if dev.type != "cpu":
+                count("shard.h2d_bytes", sum(h.nbytes for h in levels))
         count("shard.windows")
         count("shard.window_cells", sum(w.size for w in plan.windows[:L]))
         count("shard.owned_cells", self.owned_cells(s))
-        if dev.type != "cpu":
-            count("shard.h2d_bytes", sum(h.nbytes for h in hosts))
-        del hosts
+        del levels
         wmeta = AmrMeta(geoms, bas, list(meta.ref_ratio[: L - 1]), meta.time,
                         meta.level_steps[:L] if meta.level_steps else None,
                         meta.ndim2)
@@ -463,6 +481,46 @@ class ShardedDenseState:
         ds._in_level_np[:L] = inlev
         ds._covered_np[:L] = covered
         return ds
+
+    def _assemble(self, lev: int, w: Box, parts) -> np.ndarray:
+        """Level lev of a window over w on the host, from the host FABs of
+        ``parts`` (``_boxes``); zero outside them."""
+        host = np.zeros((len(self.names),) + w.shape,
+                        dtype=_np_dtype(self.dtype))
+        for i, sh, part in parts:
+            src = self.meta.bas[lev][i].shift(sh)
+            host[(slice(None),) + _box_slices(part, w)] = \
+                self.source[lev][i][(self._sel,) + _box_slices(part, src)]
+        return host
+
+    def _cut(self, lev: int, w: Box, mask: np.ndarray,
+             dev: torch.device) -> torch.Tensor:
+        """Level lev of a window over w on ``dev``, cut from the parts of
+        the :class:`ShardedOutput` source: the window's intersection with
+        each part's owned block, and with each periodic image of it, one
+        ``.to(dev)`` a comp (``shard.gather_bytes`` when it crosses cards;
+        from the window's own card a strided copy, no temporary), then
+        every cell outside the level's boxes (``mask`` False) zeroed, as
+        ``_assemble`` leaves it.  A non-trivial mask is copied to the card
+        (``shard.h2d_bytes``)."""
+        out = torch.zeros((len(self.names),) + w.shape, dtype=self.dtype,
+                          device=dev)
+        for sh in self._shifts(lev):
+            for own, part in self.source.level_parts(lev):
+                home = own.shift(sh)
+                piece = _isect(home, w)
+                if piece is None:
+                    continue
+                dst, src = _box_slices(piece, w), _box_slices(piece, home)
+                for k, c in enumerate(self._idx):
+                    out[(k,) + dst] = _moved(part[(c,) + src], dev,
+                                             self.dtype)
+        if not mask.all():
+            hole = torch.from_numpy(~mask).to(dev)
+            if dev.type != "cpu":
+                count("shard.h2d_bytes", mask.nbytes)
+            out.masked_fill_(hole, 0)
+        return out
 
     def owned_cells(self, s: int) -> int:
         """The cells shard s answers for: of the levels' boxes inside its
@@ -515,23 +573,25 @@ class ShardGather:
     inside one shard's block is packed straight out of that shard's
     output; a box that straddles blocks is assembled on the first shard's
     device from each owner's part (one ``.to`` a part) and packed there.
-    With ``device``: into one ``DenseAmrState`` on it (a pipeline stage's
-    registered output), each shard's owned cells copied with one ``.to``
-    a level.
+    With ``defer`` each pack's copy to the host is waited for only when
+    the plotfile is written (``write_async``).  With ``device``: into one
+    ``DenseAmrState`` on it, each shard's owned cells copied with one
+    ``.to`` a level.  :class:`ShardedOutput` keeps them where they are.
 
     ``add``, ``write`` and ``state`` run in the span ``shard.gather``; the
     bytes of owned cells moved to another card or to the host count in
     ``shard.gather_bytes``."""
 
     def __init__(self, sd: ShardedDenseState, device=None,
-                 dtype=np.float64):
+                 dtype=np.float64, defer: bool = False):
         self.sd = sd
-        self.device = None if device is None else torch.device(device)
-        self.dtype = dtype
+        self._into = None if device is None else torch.device(device)
+        self._file_dtype = dtype
         self.names = None
         self._records = None
         self._levels = None
         self._straddle: dict = {}
+        self._pending = [] if defer else None
 
     def add(self, s: int, out: DenseAmrState) -> None:
         """Shard s's output over its windows (``out.data[l]`` covers
@@ -540,21 +600,27 @@ class ShardGather:
             self._add(s, out)
 
     def _add(self, s: int, out: DenseAmrState) -> None:
+        plan = self.sd.plans[s]
+        self._add_levels(s, out.names, [(out.data[lev], plan.windows[lev])
+                                        for lev in range(plan.n_levels)])
+
+    def _add_levels(self, s: int, names, levels) -> None:
+        """Shard s's output of ``names``: ``levels[l]`` is a level's data
+        (None: no output) and the box it covers."""
         sd, plan = self.sd, self.sd.plans[s]
         meta = sd.meta
         if self.names is None:
-            self.names = list(out.names)
-            if self.device is None:
-                self._records = PlotfileRecords(meta, self.names, self.dtype)
+            self.names = list(names)
+            if self._into is None:
+                self._records = PlotfileRecords(meta, self.names,
+                                                self._file_dtype)
             else:
                 self._levels = [None] * meta.n_levels
-        for lev in range(plan.n_levels):
+        for lev, (data, w) in enumerate(levels):
             own = plan.owned[lev]
-            data = out.data[lev]
             if own is None or data is None:
                 continue
-            w = plan.windows[lev]
-            if self.device is not None:
+            if self._into is not None:
                 self._add_state(lev, data, w, own)
                 continue
             block = plan.blocks[lev]
@@ -567,11 +633,20 @@ class ShardGather:
                 if part is not None:
                     self._add_part(lev, i, b, data, w, part)
             if whole:
-                self._records.add(lev, data, w, whole)
+                self._file(lev, data, w, whole)
                 if data.device.type != "cpu":
                     count("shard.gather_bytes", self._record_bytes(
                         data.shape[0], sum(meta.bas[lev][i].size
                                            for i in whole)))
+
+    def _file(self, lev, data, box, idx) -> None:
+        """Pack boxes ``idx`` of ``data`` (over ``box``) and file their
+        records now, or when written with ``defer``."""
+        finish = self._records.start(lev, data, box, idx)
+        if self._pending is None:
+            finish()
+        else:
+            self._pending.append(finish)
 
     def _add_part(self, lev, i, b, data, w, part) -> None:
         dev0 = self.sd.mesh.devices[0]
@@ -586,54 +661,186 @@ class ShardGather:
             self._straddle[(lev, i)] = (buf, left)
             return
         self._straddle.pop((lev, i), None)
-        self._records.add(lev, buf, b, [i])
+        self._file(lev, buf, b, [i])
         if dev0.type != "cpu":
             count("shard.gather_bytes", self._record_bytes(buf.shape[0],
                                                            b.size))
 
     def _record_bytes(self, ncomp: int, cells: int) -> int:
         """Bytes of FAB records of ``cells`` cells copied to the host."""
-        return ncomp * cells * np.dtype(self.dtype).itemsize
+        return ncomp * cells * np.dtype(self._file_dtype).itemsize
 
     def _add_state(self, lev, data, w, own) -> None:
         bbox = self.sd.lmeta[lev].bbox
         if self._levels[lev] is None:
             self._levels[lev] = torch.zeros(
                 (data.shape[0],) + bbox.shape, dtype=data.dtype,
-                device=self.device)
+                device=self._into)
         self._levels[lev][(slice(None),) + _box_slices(own, bbox)] = \
-            _moved(data[(slice(None),) + _box_slices(own, w)], self.device)
+            _moved(data[(slice(None),) + _box_slices(own, w)], self._into)
 
-    def write(self, path: str) -> None:
+    def _check(self) -> None:
         if self._straddle:
             raise ValueError(f"boxes {sorted(self._straddle)[:4]} only "
                              "partly gathered")
+
+    def write(self, path: str) -> None:
+        self._check()
         with span("shard.gather"):
+            for finish in self._pending or ():
+                finish()
             self._records.write(path)
+
+    def write_async(self, path: str, submit) -> None:
+        """``write`` with the host half on another thread, as
+        ``DenseAmrState.to_plotfile_async``: ``submit`` gets a thunk that
+        waits for each pack's copy, files the records and writes."""
+        self._check()
+        pending, records = self._pending or [], self._records
+
+        def write():
+            for finish in pending:
+                finish()
+            records.write(path)
+
+        submit(write)
 
     def state(self) -> DenseAmrState:
         """The gathered output as one state on ``device``."""
         sd = self.sd
         with span("shard.gather"):
             return DenseAmrState(sd.meta, self.names, self._levels, sd.lmeta,
-                                 self.device)
+                                 self._into)
 
 
-def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """``t`` on ``device``; a copy to another device counts in
+class ShardedOutput(ShardGather):
+    """A stage's output kept sharded (a pipeline's registered output,
+    ``run_windows(..., keep=True)``): of each shard's output, the block it
+    owns on each level (``plans[s].owned[l]``), a copy on the shard's own
+    device, so that the window is freed.  It carries what
+    ``Session.load`` checks: ``meta`` and the levels' ``lmeta``,
+    ``names``, ``dtype`` and ``device``, the first shard's.
+
+    A sharded consumer cuts its windows from the parts on the cards
+    (``ShardedDenseState`` with this as its source).  Every other consumer
+    takes one of: ``state()``, the gather into one state on ``device``
+    (``ShardGather``'s, built on the first call and kept);
+    ``level_fabs()``, the host FABs, each part copied to the host on its
+    own; ``to_plotfile`` / ``to_plotfile_async``, the plotfile packed
+    from the parts (``ShardGather``'s record path)."""
+
+    def __init__(self, sd: ShardedDenseState):
+        super().__init__(sd)
+        self.meta, self.lmeta = sd.meta, sd.lmeta
+        self.device = sd.mesh.devices[0]
+        self.dtype = None
+        self.parts: List[Optional[list]] = [None] * sd.mesh.size
+        self._state = None
+
+    def _add(self, s: int, out: DenseAmrState) -> None:
+        plan = self.sd.plans[s]
+        if self.names is None:
+            self.names, self.dtype = list(out.names), out.dtype
+        keep = []
+        for lev in range(plan.n_levels):
+            own, data = plan.owned[lev], out.data[lev]
+            keep.append(None if own is None or data is None else data[
+                (slice(None),) + _box_slices(own, plan.windows[lev])].clone(
+                    memory_format=torch.contiguous_format))
+        self.parts[s] = keep
+
+    def _held(self, s: int):
+        """Shard s's parts as ``_add_levels`` takes them."""
+        return [(part, self.sd.plans[s].owned[lev])
+                for lev, part in enumerate(self.parts[s] or ())]
+
+    def level_parts(self, lev: int) -> List[Tuple[Box, torch.Tensor]]:
+        """(owned block, part) of every shard holding level ``lev``."""
+        return [(plan.owned[lev], parts[lev])
+                for plan, parts in zip(self.sd.plans, self.parts)
+                if parts is not None and lev < len(parts)
+                and parts[lev] is not None]
+
+    def _into_gather(self, g: ShardGather) -> ShardGather:
+        """``g`` with every shard's parts added (span ``shard.gather``)."""
+        with span("shard.gather"):
+            for s in range(len(self.parts)):
+                g._add_levels(s, self.names, self._held(s))
+        return g
+
+    def write(self, path: str) -> None:
+        self._into_gather(ShardGather(self.sd)).write(path)
+
+    to_plotfile = write
+
+    def to_plotfile_async(self, path: str, submit) -> None:
+        self._into_gather(ShardGather(self.sd, defer=True)).write_async(
+            path, submit)
+
+    def state(self) -> DenseAmrState:
+        """The output gathered into one state on ``device``, the bytes of
+        ``ShardGather(sd, device).state()``: built on the first call, then
+        kept."""
+        if self._state is None:
+            g = self._into_gather(ShardGather(self.sd, self.device))
+            self._state = DenseAmrState(self.meta, self.names, g._levels,
+                                        self.lmeta, self.device)
+        return self._state
+
+    def level_fabs(self) -> List[List[np.ndarray]]:
+        """``DenseAmrState.level_fabs`` of the gathered output: each
+        level's part copied to the host on its own (no stop on the first
+        card), then each box's C-contiguous copy cut from the parts."""
+        out = []
+        with span("shard.gather"):
+            for lev in range(self.meta.n_levels):
+                held = [(own, _host(part))
+                        for own, part in self.level_parts(lev)]
+                fabs = []
+                for b in self.meta.bas[lev]:
+                    pieces = [(own, h, _isect(own, b)) for own, h in held]
+                    pieces = [p for p in pieces if p[2] is not None]
+                    if len(pieces) == 1 and pieces[0][2] == b:
+                        own, h, _ = pieces[0]
+                        fabs.append(np.ascontiguousarray(
+                            h[(slice(None),) + _box_slices(b, own)]))
+                        continue
+                    fab = np.zeros((len(self.names),) + b.shape,
+                                   dtype=_np_dtype(self.dtype))
+                    for own, h, p in pieces:
+                        fab[(slice(None),) + _box_slices(p, b)] = \
+                            h[(slice(None),) + _box_slices(p, own)]
+                    fabs.append(fab)
+                out.append(fabs)
+        return out
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host; a copy from a card counts in
     ``shard.gather_bytes``."""
+    if t.device.type != "cpu":
+        count("shard.gather_bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()
+
+
+def _moved(t: torch.Tensor, device: torch.device,
+           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``t`` on ``device`` (in ``dtype``); a copy to another device counts
+    in ``shard.gather_bytes``."""
     if t.device != device:
         count("shard.gather_bytes", t.numel() * t.element_size())
-    return t.to(device)
+    return t.to(device, dtype)
 
 
 def run_windows(sd: ShardedDenseState, fn: Callable[..., DenseAmrState],
-                device=None, windows: Optional[list] = None) -> ShardGather:
+                device=None, windows: Optional[list] = None,
+                keep: bool = False) -> ShardGather:
     """``fn`` on every window, one after another, each output's owned cells
-    gathered (``ShardGather``) before the next window is built.
-    ``windows``: the argument of ``fn`` for each shard, built already (the
-    windows a solve kept resident); each entry is dropped once visited."""
-    out = ShardGather(sd, device)
+    gathered (``ShardGather``; with ``keep`` kept on their devices,
+    ``ShardedOutput``) before the next window is built.  ``windows``: the
+    argument of ``fn`` for each shard, built already (the windows a solve
+    kept resident); each entry is dropped once visited."""
+    out = ShardedOutput(sd) if keep else ShardGather(sd, device)
     for s in range(sd.mesh.size):
         if windows is None:
             arg = sd.window(s)

@@ -30,7 +30,11 @@ thread one Session through the tool mains instead:
     under their output names; a later stage asking for that name gets the
     in-memory object instead of reading the file back, when its device,
     dtype (or, for copy-only consumers, a wider one), periodicity, levels
-    and comps match;
+    and comps match.  A sharded stage (``ndevices>1``) registers its
+    output kept on the shards' cards (``parallel/dense_shard.py``
+    ``ShardedOutput``): a sharded consumer cuts its windows from it there,
+    one that needs a whole state gathers it on the first card once, one
+    that needs host FABs copies each part to the host;
   * per-stage ``write=0`` skips the disk artifact entirely;
   * ``async_writes=True`` (pipeline, server) writes plotfiles and text on
     ONE background thread while the next stage computes: the device packs
@@ -66,6 +70,7 @@ import torch
 from . import config
 from .amr.dense import DenseAmrState, _level_metas, assemble_level
 from .amr.hierarchy import load_plotfile_fabs
+from .parallel.dense_shard import ShardedOutput
 from .telemetry import count, span
 
 
@@ -122,25 +127,39 @@ class LoadedPlotfile:
     """A plotfile as a tool loads it: ``meta``, ``names`` and ``fabs``
     (``fabs[lev][i]``: box i's ``[ncomp, *box.shape]`` host array), the
     output of ``amr/hierarchy.load_plotfile_fabs``.  A registered
-    in-session output wraps its ``DenseAmrState`` (``state``) instead; its
-    ``fabs`` are copied from the state on first use (the sparse paths need
-    them), in the state's dtype."""
+    in-session output wraps its ``output`` instead: a ``DenseAmrState``,
+    or a ``ShardedOutput`` (``parallel/dense_shard.py``) whose parts stay
+    on their cards.  Its ``fabs`` are copied from the output on first use
+    (the sparse paths need them), in its dtype; ``state`` is the output
+    as one dense state (a sharded output gathers on its first card, once);
+    ``window_source`` is what shard windows are cut from."""
 
-    def __init__(self, meta, names, fabs=None,
-                 state: Optional[DenseAmrState] = None):
+    def __init__(self, meta, names, fabs=None, state=None):
         self.meta = meta
         self.names = names
         self._fabs = fabs
-        self.state = state
+        self.output = state
 
     @classmethod
-    def of_state(cls, state: DenseAmrState) -> "LoadedPlotfile":
+    def of_state(cls, state) -> "LoadedPlotfile":
         return cls(state.meta, state.names, state=state)
+
+    @property
+    def state(self) -> Optional[DenseAmrState]:
+        out = self.output
+        return out.state() if isinstance(out, ShardedOutput) else out
+
+    @property
+    def window_source(self):
+        """A sharded output itself (windows cut on the cards), else the
+        host FABs."""
+        out = self.output
+        return out if isinstance(out, ShardedOutput) else self.fabs
 
     @property
     def fabs(self):
         if self._fabs is None:
-            self._fabs = self.state.level_fabs()
+            self._fabs = self.output.level_fabs()
         return self._fabs
 
 
@@ -251,7 +270,7 @@ class Session:
         ``session.host_miss``."""
         src = self.plotfiles.get(path)
         if src is not None:
-            st = src.state
+            st = src.output
             per_ok = (is_periodic is None
                       or tuple(bool(p) for p in is_periodic)
                       == tuple(bool(p) for p in
@@ -377,7 +396,7 @@ class Session:
         assembles host FABs, else ``session.dense_hit``."""
         want = list(src.names if names is None else names)
         key = (id(src), _dev_key(device), dtype)
-        st = src.state
+        out = src.output
         built = False
         with self._cache_lock:
             ds = self._dense.get(key)
@@ -385,7 +404,8 @@ class Session:
                         for e in self._siblings(src)[1:]
                         if (id(e), key[1], dtype) in self._dense), None)
         if ds is None:
-            if st is not None and _dev_key(st.device) == _dev_key(device):
+            if out is not None and _dev_key(out.device) == _dev_key(device):
+                st = src.state
                 ds = st if st.dtype == dtype else st.with_data(
                     st.names, [d.to(dtype) for d in st.data])
             elif sib is not None:
@@ -403,7 +423,7 @@ class Session:
                 with self._cache_lock:
                     self._dense[key] = ds
                     self._retain[id(src)] = src
-        missing = [] if st is not None else [n for n in want
+        missing = [] if out is not None else [n for n in want
                                              if n not in ds.names]
         if missing:
             fabs = _comps(src, missing)
@@ -418,7 +438,9 @@ class Session:
 
     # -- output registry ------------------------------------------------------------
 
-    def put_plotfile(self, name: str, state: DenseAmrState) -> None:
+    def put_plotfile(self, name: str, state) -> None:
+        """Register a tool's output plotfile: a ``DenseAmrState``, or a
+        ``ShardedOutput`` kept on the shards' cards."""
         self.plotfiles[name] = LoadedPlotfile.of_state(state)
 
     def put_surface(self, name: str, mef) -> None:
@@ -565,10 +587,11 @@ def stage_submit_io(args: dict, path: str, thunk) -> None:
         thunk()
 
 
-def stage_write_plotfile(args: dict, out: DenseAmrState, path: str) -> bool:
-    """Write a tool's output plotfile honouring write= and the session's
-    write-back.  Returns whether a write was issued (now, or queued and
-    settled by a later flush)."""
+def stage_write_plotfile(args: dict, out, path: str) -> bool:
+    """Write a tool's output plotfile (a ``DenseAmrState`` or a
+    ``ShardedOutput``) honouring write= and the session's write-back.
+    Returns whether a write was issued (now, or queued and settled by a
+    later flush)."""
     if not stage_writes(args):
         return False
     s = get_session(args)

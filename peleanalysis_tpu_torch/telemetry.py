@@ -30,8 +30,9 @@ Spans (layer: name):
 * read: ``read.plotfile`` (``amr/hierarchy.load_plotfile_fabs``);
 * dense assembly and ghost fill: ``assemble.host``, ``assemble.h2d``
   (``amr/dense.py``), ``fill.dense`` (``ops/dense_fill.py``); a shard
-  window's ``shard.assemble`` (host) and ``shard.h2d``
-  (``parallel/dense_shard.py``);
+  window's ``shard.assemble`` (its masks, and its levels assembled on the
+  host or cut on its card from a sharded output) and ``shard.h2d`` (a
+  host-assembled window's copy; ``parallel/dense_shard.py``);
 * entry and dispatch, sharded: ``shard.run``, a tool's function on one
   window (``run_windows``, ``extract_isosurface_windows``);
 * analysis ops: ``stats.accumulate`` (conditionalMean, jpdf);
@@ -39,8 +40,10 @@ Spans (layer: name):
 * device to host and write: ``write.mef``, ``write.text``,
   ``write.plotfile``, ``writeback.wait`` (``io/fab_pack.py``'s event
   wait), ``session.flush``; ``shard.gather`` (``ShardGather``: a shard's
-  owned cells moved into the output, its ``state()`` and ``write()``),
-  ``shard.merge`` (the isosurface's merge of its windows by node key).
+  owned cells moved into the output, or kept on its card by
+  ``ShardedOutput``; its ``state()``, ``write()`` and, from kept parts,
+  ``level_fabs()``), ``shard.merge`` (the isosurface's merge of its
+  windows by node key).
 
 Counters: ``serve.requests``; ``read.bytes``, ``read.plotfiles``;
 ``session.host_hit``, ``session.host_miss``, ``session.dense_hit``,
@@ -48,9 +51,12 @@ Counters: ``serve.requests``; ``read.bytes``, ``read.plotfiles``;
 ``kernel.binned``, ``kernel.joint``, ``kernel.march``,
 ``kernel.order_key``; the shard windows' ``shard.windows``,
 ``shard.window_cells`` (every level of a window, halo included),
-``shard.owned_cells``, ``shard.h2d_bytes`` (window copies to a card; not
-in ``h2d.bytes``) and ``shard.gather_bytes`` (owned cells moved to
-another card or to the host).
+``shard.owned_cells``, ``shard.device_windows`` (windows cut on their
+card from a sharded output that stayed on the cards), ``shard.h2d_bytes``
+(window copies to a card, and the masks of windows cut there; not in
+``h2d.bytes``) and ``shard.gather_bytes`` (owned cells moved to another
+card or to the host: gathered, written, copied to the host as FABs, or
+cut into another card's window).
 """
 from __future__ import annotations
 

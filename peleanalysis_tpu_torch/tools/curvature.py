@@ -595,7 +595,7 @@ def curvature_sharded(args, src, mesh, progress_name, aux_names, outfile,
     meta = src.meta
     dt = config.compute_dtype
     _global_bounds(kw, meta, src.fabs, src.names.index(progress_name))
-    sd = ShardedDenseState(meta, src.names, src.fabs, mesh,
+    sd = ShardedDenseState(meta, src.names, src.window_source, mesh,
                            stencil_halo(CURVATURE_STAGES, kw["interp"]), dt)
 
     def chain(arg):

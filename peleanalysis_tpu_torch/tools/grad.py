@@ -154,7 +154,7 @@ def main(args: dict) -> None:
         print(f"wrote {outfile} ({n} clusters)")
         return
     if ndev > 1:
-        sd = ShardedDenseState(meta, src.names, src.fabs,
+        sd = ShardedDenseState(meta, src.names, src.window_source,
                                mesh_from_pp(pp, ndev, device),
                                stencil_halo(GRAD_STAGES, interp, flux_match),
                                config.compute_dtype)
@@ -176,15 +176,16 @@ def write_sharded(args: dict, sd: ShardedDenseState, fn,
     """The plotfile of a stencil tool over shard windows: ``fn`` on each
     window (or on each entry of ``windows``, ``run_windows``), its owned
     cells gathered into the file (``ShardGather``).  In a session the
-    output is gathered into one state on the first shard's device instead
-    and registered for later stages.  Returns whether a write was
-    issued."""
+    owned cells stay on their shards' cards instead (``ShardedOutput``),
+    registered for later stages: a sharded stage cuts its windows from
+    them on the cards, any other consumer gathers them when it asks, and
+    with write=1 the file is packed from them.  Returns whether a write
+    was issued."""
     sess = get_session(args)
     if sess is None:
         run_windows(sd, fn, windows=windows).write(outfile)
         return True
-    out = run_windows(sd, fn, device=sd.mesh.devices[0],
-                      windows=windows).state()
+    out = run_windows(sd, fn, windows=windows, keep=True)
     sess.put_plotfile(outfile, out)
     return stage_write_plotfile(args, out, outfile)
 

@@ -111,9 +111,11 @@ def main(args: dict) -> None:
         del base
     elif ndev > 1:
         check_engine(engine)
-        sd = ShardedDenseState(meta, src.names, src.fabs,
+        # the windows hold the loaded comps only, cut on the cards from
+        # a sharded output
+        sd = ShardedDenseState(meta, load, src.window_source,
                                mesh_from_pp(pp, ndev, device), ISO_HALO,
-                               torch.float64)
+                               torch.float64, src.names)
         t1 = time.perf_counter()
         if meta.ndim2:
             mef = extract_isolines_windows(sd, iso_name, iso_val, extras,

@@ -126,18 +126,24 @@ def dual_cells(plt):
 @pytest.mark.parametrize("name", ["shard.assemble", "shard.h2d",
                                   "shard.run"])
 def test_four_windows_a_tool(traced, name):
-    assert _by_tool(traced, name) == {t: 4 for t in TOOLS}
+    # the isosurface's windows are cut from the curvature's output where
+    # its parts lie: no copy from the host
+    tools = ("curvature",) if name == "shard.h2d" else TOOLS
+    assert _by_tool(traced, name) == {t: 4 for t in tools}
 
 
 def test_gather_and_merge_spans(traced):
-    # the curvature's four owned parts and its state for the session; the
-    # isosurface's one merge of its windows
-    assert _by_tool(traced, "shard.gather") == {"curvature": 5}
+    # the curvature's four owned parts, kept on their devices for the
+    # session (no state gathered); the isosurface's one merge of its
+    # windows
+    assert _by_tool(traced, "shard.gather") == {"curvature": 4}
     assert _by_tool(traced, "shard.merge") == {"isosurface": 1}
 
 
 def test_window_counter(traced):
     assert traced["counters"]["shard.windows"] == 4 * len(TOOLS)
+    # the isosurface's four, cut from the curvature's resident output
+    assert traced["counters"]["shard.device_windows"] == 4
 
 
 def test_owned_cells_sum_to_the_hierarchy(traced, plt):

@@ -14,12 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from peleanalysis_tpu_torch import cli
+from peleanalysis_tpu_torch import cli, telemetry
 from peleanalysis_tpu_torch import config as port_config
 from peleanalysis_tpu_torch.amr.box import Box, BoxArray
 from peleanalysis_tpu_torch.amr.geometry import Geometry
 from peleanalysis_tpu_torch.io.mef import read_mef
 from peleanalysis_tpu_torch.io.plotfile import PlotfileReader, write_plotfile
+from peleanalysis_tpu_torch.parallel.dense_shard import ShardedOutput
+from peleanalysis_tpu_torch.session import Session
 from peleanalysis_tpu_torch.testing import (make_level_data,
                                             write_synthetic_plotfile)
 
@@ -241,6 +243,42 @@ def test_pipeline_with_a_sharded_stage(plotfiles):
                      *curv, "ndevices=2"]) == 0
     assert tree_bytes("g") == tree_bytes("g_ref")
     assert tree_bytes("k") == tree_bytes("k_ref")
+
+
+def test_pipeline_sharded_stage_cut_from_a_sharded_output(plotfiles):
+    """A grad kept on its shards (write=0) feeds a curvature on another
+    mesh: its windows are cut from the grad's parts, its file the
+    unsharded chain's."""
+    plt = plotfiles["3level"]
+    assert cli.main(["grad", f"infile={plt}", "gradVar=temp", D,
+                     "outfile=g_ref"]) == 0
+    curv = ["curvature", "progressName=||gradtemp||", "is_per=1 1 1", D]
+    assert cli.main([*curv, "infile=g_ref", "outfile=k_ref"]) == 0
+    before = telemetry.counter("shard.device_windows")
+    s = Session()
+    assert cli.main(["grad", f"infile={plt}", "gradVar=temp", D,
+                     "outfile=g", "write=0", "ndevices=3"], session=s) == 0
+    assert isinstance(s.plotfiles["g"].output, ShardedOutput)
+    assert cli.main([*curv, "infile=g", "outfile=k", "ndevices=4",
+                     "mesh_shape=2 2"], session=s) == 0
+    assert not os.path.exists("g")
+    assert tree_bytes("k") == tree_bytes("k_ref")
+    assert telemetry.counter("shard.device_windows") == before + 4
+
+
+def test_pipeline_smoothed_curvature_hands_off(plotfiles):
+    """do_smooth=1 over resident windows, kept on its shards: the
+    isosurface cut from it writes the MEF of the same stages through the
+    file."""
+    curv = ["curvature", f"infile={plotfiles['3level']}", "progressName=temp",
+            "do_smooth=1", "dtype=float64", "ndevices=2", D]
+    iso = ["isosurface", "isoVal=1000", "comps=MeanCurvature_temp",
+           "ndevices=3", D]
+    assert cli.main([*curv, "outfile=kf"]) == 0
+    assert cli.main([*iso, "infile=kf", "outfile_base=ref"]) == 0
+    assert cli.main(["pipeline", *curv, "outfile=k", "write=0", "--", *iso,
+                     "infile=k", "outfile_base=got"]) == 0
+    assert tree_bytes("got.mef") == tree_bytes("ref.mef")
 
 
 # -- against the JAX tools at ndevices=8 (its eight virtual host devices) ----
