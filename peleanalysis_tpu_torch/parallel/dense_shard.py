@@ -8,15 +8,17 @@ stencils.  PyTorch has no partitioner, and a halo exchange before each of
 a curvature call's ~950 kernels would mean rewriting the tested
 single-device engine.  So each shard gets one WINDOW instead: per level,
 the cells it owns plus a halo as deep as the tool's whole chain of ghost
-fills and stencils.  A window is assembled from the host FABs and copied
-to the shard's device, or, when its source is an earlier stage's output
-kept sharded (:class:`ShardedOutput`, a pipeline's registered output),
-cut on the shard's device from the parts that stay on their cards: a
-neighbour's part gives a thin slab, one peer copy.  Both give the same
-window, byte for byte.  The shard runs the single-device function on its
-window and keeps only its own cells.  A cell farther than the halo from a
-window's edge is computed exactly as in the global run, whatever the fill
-puts at that edge, so the files are the unsharded run's, byte for byte.
+fills and stencils.  A window is assembled from the host FABs
+(:class:`HostFabs`) and copied to the shard's device, or, when its source
+is an earlier stage's output (:class:`ShardGather`), cut on the shard's
+device from the parts that stay on their cards: a neighbour's part gives
+a thin slab, one peer copy.  Both give the same window, byte for byte.
+The shard runs the single-device function on its window and keeps only
+its own cells, on its card (``run_windows``, :class:`ShardGather`): the
+plotfile, the one-card state, the host FABs and the next stage's windows
+are all read from there.  A cell farther than the halo from a window's
+edge is computed exactly as in the global run, whatever the fill puts at
+that edge, so the files are the unsharded run's, byte for byte.
 
 The partition (AMReX's DistributionMapping, Src/grad.cpp:160-163): the
 level-0 domain is cut into the mesh's blocks (X slabs by default,
@@ -210,25 +212,21 @@ class ShardedDenseState:
     its shard's device when visited (``window(s)`` or iteration) and held
     only by the caller.  The counterpart of the JAX ``shard_dense_state``.
 
-    ``source``: the host FABs (``fabs[lev][i]``, the comps
-    ``source_names``, by default ``names``), or a :class:`ShardedOutput`
-    holding ``names``; the windows hold ``names`` only."""
+    ``source``: where the windows' data comes from, holding the comps
+    ``source.names``: :class:`HostFabs`, or an earlier stage's
+    :class:`ShardGather`; None for the partition only.  The windows hold
+    ``names`` only."""
 
     def __init__(self, meta: AmrMeta, names: Sequence[str], source,
-                 mesh: Mesh, halo: Halo, dtype: torch.dtype,
-                 source_names: Optional[Sequence[str]] = None):
+                 mesh: Mesh, halo: Halo, dtype: torch.dtype):
         if meta.ndim2 and "z" in mesh.axis_names:
             raise ValueError(f"mesh_shape {mesh.shape} cuts z, which a DIM=2 "
                              "plotfile does not have: give mesh_shape=a b")
         axes = [SPATIAL_AXES.index(a) for a in mesh.axis_names]
         self.meta, self.names, self.source = meta, list(names), source
-        have = list(source.names if isinstance(source, ShardedOutput)
-                    else source_names or names)
-        # the source's comps the windows take, and as an index of the host
-        # FABs' comp axis: all of them in order, or a list
-        self._idx = [have.index(n) for n in self.names]
-        self._sel = (slice(None) if self._idx == list(range(len(have)))
-                     else self._idx)
+        # the source's comp of each of the windows' comps
+        self._idx = (None if source is None else
+                     [list(source.names).index(n) for n in self.names])
         self.mesh, self.halo, self.dtype = mesh, halo, dtype
         self.lmeta = _level_metas(meta)
         self.cut = [False] * 3
@@ -429,19 +427,14 @@ class ShardedDenseState:
 
     def window(self, s: int) -> DenseAmrState:
         """Shard s's window as a dense state on its device; its in-level
-        and covered masks the global ones, computed on the host (span
-        ``shard.assemble``).  From host FABs each level is assembled on the
-        host from the boxes (and periodic images) that meet it, then every
-        level copied once (``shard.h2d``); from a :class:`ShardedOutput`
-        each level is cut on the device (``_cut``, in ``shard.assemble``;
-        counts ``shard.device_windows``).  Counts ``shard.windows``,
-        ``shard.window_cells`` (every level's window, halo included),
-        ``shard.owned_cells`` and ``shard.h2d_bytes`` (nothing on the
-        CPU)."""
+        and covered masks the global ones, computed on the host, and its
+        levels taken from ``source`` (span ``shard.assemble``), then placed
+        on the device (``source.window_data``).  Counts ``shard.windows``,
+        ``shard.window_cells`` (every level's window, halo included) and
+        ``shard.owned_cells``."""
         plan = self.plans[s]
         meta = self.meta
         dev = self.mesh.devices[s]
-        resident = isinstance(self.source, ShardedOutput)
         L = plan.n_levels
         geoms = [self._geometry(plan, lev) for lev in range(L)]
         bas, levels, inlev, covered = [], [], [], []
@@ -452,22 +445,15 @@ class ShardedDenseState:
                 mask = np.zeros(w.shape, dtype=bool)
                 for _, _, part in parts:
                     mask[_box_slices(part, w)] = True
-                levels.append(self._cut(lev, w, mask, dev) if resident
-                              else self._assemble(lev, w, parts))
+                levels.append(self.source.window_level(self, lev, w, parts,
+                                                       mask, dev))
                 bas.append(BoxArray([p for _, _, p in parts]))
                 inlev.append(mask)
                 # no cell outside the global bbox is covered, as none is in
                 # the global run: its flux matching sees the bbox's edge
                 covered.append(covered_mask_over(meta, lev, w)
                                & self._inside(self.lmeta[lev].bbox, w))
-        if resident:
-            data = levels
-            count("shard.device_windows")
-        else:
-            with span("shard.h2d"):
-                data = [torch.from_numpy(h).to(dev) for h in levels]
-            if dev.type != "cpu":
-                count("shard.h2d_bytes", sum(h.nbytes for h in levels))
+        data = self.source.window_data(levels, dev)
         count("shard.windows")
         count("shard.window_cells", sum(w.size for w in plan.windows[:L]))
         count("shard.owned_cells", self.owned_cells(s))
@@ -481,46 +467,6 @@ class ShardedDenseState:
         ds._in_level_np[:L] = inlev
         ds._covered_np[:L] = covered
         return ds
-
-    def _assemble(self, lev: int, w: Box, parts) -> np.ndarray:
-        """Level lev of a window over w on the host, from the host FABs of
-        ``parts`` (``_boxes``); zero outside them."""
-        host = np.zeros((len(self.names),) + w.shape,
-                        dtype=_np_dtype(self.dtype))
-        for i, sh, part in parts:
-            src = self.meta.bas[lev][i].shift(sh)
-            host[(slice(None),) + _box_slices(part, w)] = \
-                self.source[lev][i][(self._sel,) + _box_slices(part, src)]
-        return host
-
-    def _cut(self, lev: int, w: Box, mask: np.ndarray,
-             dev: torch.device) -> torch.Tensor:
-        """Level lev of a window over w on ``dev``, cut from the parts of
-        the :class:`ShardedOutput` source: the window's intersection with
-        each part's owned block, and with each periodic image of it, one
-        ``.to(dev)`` a comp (``shard.gather_bytes`` when it crosses cards;
-        from the window's own card a strided copy, no temporary), then
-        every cell outside the level's boxes (``mask`` False) zeroed, as
-        ``_assemble`` leaves it.  A non-trivial mask is copied to the card
-        (``shard.h2d_bytes``)."""
-        out = torch.zeros((len(self.names),) + w.shape, dtype=self.dtype,
-                          device=dev)
-        for sh in self._shifts(lev):
-            for own, part in self.source.level_parts(lev):
-                home = own.shift(sh)
-                piece = _isect(home, w)
-                if piece is None:
-                    continue
-                dst, src = _box_slices(piece, w), _box_slices(piece, home)
-                for k, c in enumerate(self._idx):
-                    out[(k,) + dst] = _moved(part[(c,) + src], dev,
-                                             self.dtype)
-        if not mask.all():
-            hole = torch.from_numpy(~mask).to(dev)
-            if dev.type != "cpu":
-                count("shard.h2d_bytes", mask.nbytes)
-            out.masked_fill_(hole, 0)
-        return out
 
     def owned_cells(self, s: int) -> int:
         """The cells shard s answers for: of the levels' boxes inside its
@@ -566,193 +512,84 @@ class ShardedDenseState:
                      and bbox.hi[d] >= g.domain.hi[d] for d in range(3))
 
 
+class HostFabs:
+    """A window source of host FABs: ``fabs[lev][i]``, box i's ``[ncomp,
+    *box.shape]`` array of the comps ``names``.  Each level of a window is
+    assembled on the host from the boxes (and periodic images) that meet
+    it, then every level copied to the shard's device once."""
+
+    def __init__(self, names: Sequence[str], fabs):
+        self.names, self.fabs = list(names), fabs
+
+    def window_level(self, sd: ShardedDenseState, lev: int, w: Box, parts,
+                     mask: np.ndarray, dev: torch.device) -> np.ndarray:
+        """Level lev of a window of ``sd`` over w on the host, from the
+        FABs of ``parts`` (``ShardedDenseState._boxes``); zero outside
+        them."""
+        # all comps in order as a slice: a view, not a copy
+        sel = (slice(None) if sd._idx == list(range(len(self.names)))
+               else sd._idx)
+        host = np.zeros((len(sd.names),) + w.shape,
+                        dtype=_np_dtype(sd.dtype))
+        for i, sh, part in parts:
+            src = sd.meta.bas[lev][i].shift(sh)
+            host[(slice(None),) + _box_slices(part, w)] = \
+                self.fabs[lev][i][(sel,) + _box_slices(part, src)]
+        return host
+
+    @staticmethod
+    def window_data(levels: List[np.ndarray],
+                    dev: torch.device) -> List[torch.Tensor]:
+        """The assembled levels copied to ``dev`` (span ``shard.h2d``;
+        counts ``shard.h2d_bytes``, nothing on the CPU)."""
+        with span("shard.h2d"):
+            data = [torch.from_numpy(h).to(dev) for h in levels]
+        if dev.type != "cpu":
+            count("shard.h2d_bytes", sum(h.nbytes for h in levels))
+        return data
+
+
 class ShardGather:
-    """The owned cells of each shard's output, gathered.
-
-    Without ``device``: into one plotfile (``PlotfileRecords``): a box
-    inside one shard's block is packed straight out of that shard's
-    output; a box that straddles blocks is assembled on the first shard's
-    device from each owner's part (one ``.to`` a part) and packed there.
-    With ``defer`` each pack's copy to the host is waited for only when
-    the plotfile is written (``write_async``).  With ``device``: into one
-    ``DenseAmrState`` on it, each shard's owned cells copied with one
-    ``.to`` a level.  :class:`ShardedOutput` keeps them where they are.
-
-    ``add``, ``write`` and ``state`` run in the span ``shard.gather``; the
-    bytes of owned cells moved to another card or to the host count in
-    ``shard.gather_bytes``."""
-
-    def __init__(self, sd: ShardedDenseState, device=None,
-                 dtype=np.float64, defer: bool = False):
-        self.sd = sd
-        self._into = None if device is None else torch.device(device)
-        self._file_dtype = dtype
-        self.names = None
-        self._records = None
-        self._levels = None
-        self._straddle: dict = {}
-        self._pending = [] if defer else None
-
-    def add(self, s: int, out: DenseAmrState) -> None:
-        """Shard s's output over its windows (``out.data[l]`` covers
-        ``windows[l]``; None where the shard computed no output)."""
-        with span("shard.gather"):
-            self._add(s, out)
-
-    def _add(self, s: int, out: DenseAmrState) -> None:
-        plan = self.sd.plans[s]
-        self._add_levels(s, out.names, [(out.data[lev], plan.windows[lev])
-                                        for lev in range(plan.n_levels)])
-
-    def _add_levels(self, s: int, names, levels) -> None:
-        """Shard s's output of ``names``: ``levels[l]`` is a level's data
-        (None: no output) and the box it covers."""
-        sd, plan = self.sd, self.sd.plans[s]
-        meta = sd.meta
-        if self.names is None:
-            self.names = list(names)
-            if self._into is None:
-                self._records = PlotfileRecords(meta, self.names,
-                                                self._file_dtype)
-            else:
-                self._levels = [None] * meta.n_levels
-        for lev, (data, w) in enumerate(levels):
-            own = plan.owned[lev]
-            if own is None or data is None:
-                continue
-            if self._into is not None:
-                self._add_state(lev, data, w, own)
-                continue
-            block = plan.blocks[lev]
-            whole = []
-            for i, b in enumerate(meta.bas[lev]):
-                if block.contains_box(b):
-                    whole.append(i)
-                    continue
-                part = _isect(block, b)
-                if part is not None:
-                    self._add_part(lev, i, b, data, w, part)
-            if whole:
-                self._file(lev, data, w, whole)
-                if data.device.type != "cpu":
-                    count("shard.gather_bytes", self._record_bytes(
-                        data.shape[0], sum(meta.bas[lev][i].size
-                                           for i in whole)))
-
-    def _file(self, lev, data, box, idx) -> None:
-        """Pack boxes ``idx`` of ``data`` (over ``box``) and file their
-        records now, or when written with ``defer``."""
-        finish = self._records.start(lev, data, box, idx)
-        if self._pending is None:
-            finish()
-        else:
-            self._pending.append(finish)
-
-    def _add_part(self, lev, i, b, data, w, part) -> None:
-        dev0 = self.sd.mesh.devices[0]
-        buf, left = self._straddle.get((lev, i), (None, b.size))
-        if buf is None:
-            buf = torch.empty((data.shape[0],) + b.shape, dtype=data.dtype,
-                              device=dev0)
-        buf[(slice(None),) + _box_slices(part, b)] = \
-            _moved(data[(slice(None),) + _box_slices(part, w)], dev0)
-        left -= part.size
-        if left:
-            self._straddle[(lev, i)] = (buf, left)
-            return
-        self._straddle.pop((lev, i), None)
-        self._file(lev, buf, b, [i])
-        if dev0.type != "cpu":
-            count("shard.gather_bytes", self._record_bytes(buf.shape[0],
-                                                           b.size))
-
-    def _record_bytes(self, ncomp: int, cells: int) -> int:
-        """Bytes of FAB records of ``cells`` cells copied to the host."""
-        return ncomp * cells * np.dtype(self._file_dtype).itemsize
-
-    def _add_state(self, lev, data, w, own) -> None:
-        bbox = self.sd.lmeta[lev].bbox
-        if self._levels[lev] is None:
-            self._levels[lev] = torch.zeros(
-                (data.shape[0],) + bbox.shape, dtype=data.dtype,
-                device=self._into)
-        self._levels[lev][(slice(None),) + _box_slices(own, bbox)] = \
-            _moved(data[(slice(None),) + _box_slices(own, w)], self._into)
-
-    def _check(self) -> None:
-        if self._straddle:
-            raise ValueError(f"boxes {sorted(self._straddle)[:4]} only "
-                             "partly gathered")
-
-    def write(self, path: str) -> None:
-        self._check()
-        with span("shard.gather"):
-            for finish in self._pending or ():
-                finish()
-            self._records.write(path)
-
-    def write_async(self, path: str, submit) -> None:
-        """``write`` with the host half on another thread, as
-        ``DenseAmrState.to_plotfile_async``: ``submit`` gets a thunk that
-        waits for each pack's copy, files the records and writes."""
-        self._check()
-        pending, records = self._pending or [], self._records
-
-        def write():
-            for finish in pending:
-                finish()
-            records.write(path)
-
-        submit(write)
-
-    def state(self) -> DenseAmrState:
-        """The gathered output as one state on ``device``."""
-        sd = self.sd
-        with span("shard.gather"):
-            return DenseAmrState(sd.meta, self.names, self._levels, sd.lmeta,
-                                 self._into)
-
-
-class ShardedOutput(ShardGather):
-    """A stage's output kept sharded (a pipeline's registered output,
-    ``run_windows(..., keep=True)``): of each shard's output, the block it
-    owns on each level (``plans[s].owned[l]``), a copy on the shard's own
-    device, so that the window is freed.  It carries what
+    """A sharded stage's output (``run_windows``): of each shard's output,
+    the block it owns on each level (``plans[s].owned[l]``), a copy on the
+    shard's own device, so that the window is freed.  It carries what
     ``Session.load`` checks: ``meta`` and the levels' ``lmeta``,
     ``names``, ``dtype`` and ``device``, the first shard's.
 
-    A sharded consumer cuts its windows from the parts on the cards
-    (``ShardedDenseState`` with this as its source).  Every other consumer
-    takes one of: ``state()``, the gather into one state on ``device``
-    (``ShardGather``'s, built on the first call and kept);
-    ``level_fabs()``, the host FABs, each part copied to the host on its
-    own; ``to_plotfile`` / ``to_plotfile_async``, the plotfile packed
-    from the parts (``ShardGather``'s record path)."""
+    Every consumer reads the parts where they lie.  A sharded stage cuts
+    its windows from them on the cards (a window source, as
+    :class:`HostFabs` is).  ``to_plotfile`` packs a box inside one block
+    from that block on its card, and a box that straddles blocks on the
+    first card, assembled there from each part; ``state()`` is the output
+    as one state on the first card; ``level_fabs()`` copies each part to
+    the host on its own.
+
+    ``add``, ``to_plotfile``, ``state`` and ``level_fabs`` run in the span
+    ``shard.gather``; the bytes of owned cells moved to another card or to
+    the host count in ``shard.gather_bytes``."""
 
     def __init__(self, sd: ShardedDenseState):
-        super().__init__(sd)
-        self.meta, self.lmeta = sd.meta, sd.lmeta
+        self.sd, self.meta, self.lmeta = sd, sd.meta, sd.lmeta
         self.device = sd.mesh.devices[0]
-        self.dtype = None
+        self.names = self.dtype = self._nc = None
         self.parts: List[Optional[list]] = [None] * sd.mesh.size
         self._state = None
 
-    def _add(self, s: int, out: DenseAmrState) -> None:
+    def add(self, s: int, out: DenseAmrState) -> None:
+        """Shard s's output over its windows (``out.data[l]`` covers
+        ``windows[l]``; None where the shard computed no output): its owned
+        blocks kept."""
         plan = self.sd.plans[s]
-        if self.names is None:
-            self.names, self.dtype = list(out.names), out.dtype
-        keep = []
-        for lev in range(plan.n_levels):
-            own, data = plan.owned[lev], out.data[lev]
-            keep.append(None if own is None or data is None else data[
-                (slice(None),) + _box_slices(own, plan.windows[lev])].clone(
-                    memory_format=torch.contiguous_format))
-        self.parts[s] = keep
-
-    def _held(self, s: int):
-        """Shard s's parts as ``_add_levels`` takes them."""
-        return [(part, self.sd.plans[s].owned[lev])
-                for lev, part in enumerate(self.parts[s] or ())]
+        with span("shard.gather"):
+            if self.names is None:
+                # the comps the data holds, which may outnumber the names
+                self.names, self.dtype = list(out.names), out.dtype
+                self._nc = out.data[0].shape[0]
+            self.parts[s] = [
+                None if own is None or data is None else data[
+                    (slice(None),) + _box_slices(own, w)].clone(
+                        memory_format=torch.contiguous_format)
+                for own, data, w in zip(plan.owned, out.data, plan.windows)]
 
     def level_parts(self, lev: int) -> List[Tuple[Box, torch.Tensor]]:
         """(owned block, part) of every shard holding level ``lev``."""
@@ -761,66 +598,154 @@ class ShardedOutput(ShardGather):
                 if parts is not None and lev < len(parts)
                 and parts[lev] is not None]
 
-    def _into_gather(self, g: ShardGather) -> ShardGather:
-        """``g`` with every shard's parts added (span ``shard.gather``)."""
+    # -- the output ----------------------------------------------------------
+    def _pack(self, rec: PlotfileRecords, file) -> None:
+        """Every box of the output into ``rec`` through ``file(lev, data,
+        box, idx)`` (``rec.add``, or ``rec.start`` with its finish kept):
+        the boxes inside one part packed from it, one pack a part and
+        level, a box that straddles parts assembled on the first card.  A
+        box the parts do not cover whole gets no record: the write
+        raises."""
+        meta, dev0 = self.meta, self.device
+        item = self._nc * np.dtype(rec.dtype).itemsize
+        for lev in range(meta.n_levels):
+            parts = self.level_parts(lev)
+            whole = [[] for _ in parts]
+            for i, (b, pieces) in enumerate(_pieces(parts, meta.bas[lev])):
+                if len(pieces) == 1 and pieces[0][1] == b:
+                    whole[pieces[0][0]].append(i)
+                    continue
+                if sum(p.size for _, p in pieces) < b.size:
+                    continue
+                buf = torch.empty((self._nc,) + b.shape, dtype=self.dtype,
+                                  device=dev0)
+                for k, p in pieces:
+                    own, part = parts[k]
+                    buf[(slice(None),) + _box_slices(p, b)] = _moved(
+                        part[(slice(None),) + _box_slices(p, own)], dev0)
+                file(lev, buf, b, [i])
+                if dev0.type != "cpu":
+                    count("shard.gather_bytes", item * b.size)
+            for (own, part), idx in zip(parts, whole):
+                if not idx:
+                    continue
+                file(lev, part, own, idx)
+                if part.device.type != "cpu":
+                    count("shard.gather_bytes", item * sum(
+                        meta.bas[lev][i].size for i in idx))
+
+    def to_plotfile(self, path: str) -> None:
+        """The output as a plotfile of float64 FABs, the bytes of
+        ``DenseAmrState.to_plotfile`` of ``state()``."""
         with span("shard.gather"):
-            for s in range(len(self.parts)):
-                g._add_levels(s, self.names, self._held(s))
-        return g
-
-    def write(self, path: str) -> None:
-        self._into_gather(ShardGather(self.sd)).write(path)
-
-    to_plotfile = write
+            rec = PlotfileRecords(self.meta, self.names)
+            self._pack(rec, rec.add)
+            rec.write(path)
 
     def to_plotfile_async(self, path: str, submit) -> None:
-        self._into_gather(ShardGather(self.sd, defer=True)).write_async(
-            path, submit)
+        """``to_plotfile`` with the host half on another thread, as
+        ``DenseAmrState.to_plotfile_async``: every pack and its copy
+        started here; ``submit`` gets the thunk that waits for each copy,
+        files the records and writes."""
+        pending = []
+        with span("shard.gather"):
+            rec = PlotfileRecords(self.meta, self.names)
+            self._pack(rec, lambda *a: pending.append(rec.start(*a)))
+
+        def write():
+            for finish in pending:
+                finish()
+            rec.write(path)
+
+        submit(write)
 
     def state(self) -> DenseAmrState:
-        """The output gathered into one state on ``device``, the bytes of
-        ``ShardGather(sd, device).state()``: built on the first call, then
-        kept."""
+        """The output as one state on ``device``: per level a zero tensor
+        over the level's bbox with each owned block copied in.  Built on
+        the first call, then kept."""
         if self._state is None:
-            g = self._into_gather(ShardGather(self.sd, self.device))
-            self._state = DenseAmrState(self.meta, self.names, g._levels,
+            levels = []
+            with span("shard.gather"):
+                for lev, lm in enumerate(self.lmeta):
+                    d = torch.zeros((self._nc,) + lm.bbox.shape,
+                                    dtype=self.dtype, device=self.device)
+                    for own, part in self.level_parts(lev):
+                        d[(slice(None),) + _box_slices(own, lm.bbox)] = \
+                            _moved(part, self.device)
+                    levels.append(d)
+            self._state = DenseAmrState(self.meta, self.names, levels,
                                         self.lmeta, self.device)
         return self._state
 
     def level_fabs(self) -> List[List[np.ndarray]]:
-        """``DenseAmrState.level_fabs`` of the gathered output: each
-        level's part copied to the host on its own (no stop on the first
-        card), then each box's C-contiguous copy cut from the parts."""
+        """``DenseAmrState.level_fabs`` of ``state()``: each level's part
+        copied to the host on its own (no stop on the first card), then
+        each box's C-contiguous copy assembled from the parts."""
         out = []
         with span("shard.gather"):
             for lev in range(self.meta.n_levels):
-                held = [(own, _host(part))
-                        for own, part in self.level_parts(lev)]
+                held = []
+                for own, part in self.level_parts(lev):
+                    if part.device.type != "cpu":
+                        count("shard.gather_bytes",
+                              part.numel() * part.element_size())
+                    held.append((own, part.cpu().numpy()))
                 fabs = []
-                for b in self.meta.bas[lev]:
-                    pieces = [(own, h, _isect(own, b)) for own, h in held]
-                    pieces = [p for p in pieces if p[2] is not None]
-                    if len(pieces) == 1 and pieces[0][2] == b:
-                        own, h, _ = pieces[0]
-                        fabs.append(np.ascontiguousarray(
-                            h[(slice(None),) + _box_slices(b, own)]))
-                        continue
-                    fab = np.zeros((len(self.names),) + b.shape,
+                for b, pieces in _pieces(held, self.meta.bas[lev]):
+                    fab = np.zeros((self._nc,) + b.shape,
                                    dtype=_np_dtype(self.dtype))
-                    for own, h, p in pieces:
+                    for k, p in pieces:
+                        own, h = held[k]
                         fab[(slice(None),) + _box_slices(p, b)] = \
                             h[(slice(None),) + _box_slices(p, own)]
                     fabs.append(fab)
                 out.append(fabs)
         return out
 
+    # -- a window source -----------------------------------------------------
+    def window_level(self, sd: ShardedDenseState, lev: int, w: Box, parts,
+                     mask: np.ndarray, dev: torch.device) -> torch.Tensor:
+        """Level lev of a window of ``sd`` over w on ``dev``, cut from the
+        parts: the window's intersection with each part's owned block, and
+        with each periodic image of it, one ``.to(dev)`` a comp
+        (``shard.gather_bytes`` when it crosses cards; from the window's
+        own card a strided copy, no temporary), then every cell outside
+        the level's boxes (``mask`` False) zeroed, as
+        ``HostFabs.window_level`` leaves it.  A non-trivial mask is copied
+        to the card (``shard.h2d_bytes``)."""
+        out = torch.zeros((len(sd.names),) + w.shape, dtype=sd.dtype,
+                          device=dev)
+        for sh in sd._shifts(lev):
+            for own, part in self.level_parts(lev):
+                home = own.shift(sh)
+                piece = _isect(home, w)
+                if piece is None:
+                    continue
+                dst, src = _box_slices(piece, w), _box_slices(piece, home)
+                for k, c in enumerate(sd._idx):
+                    out[(k,) + dst] = _moved(part[(c,) + src], dev, sd.dtype)
+        if not mask.all():
+            hole = torch.from_numpy(~mask).to(dev)
+            if dev.type != "cpu":
+                count("shard.h2d_bytes", mask.nbytes)
+            out.masked_fill_(hole, 0)
+        return out
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """``t`` on the host; a copy from a card counts in
-    ``shard.gather_bytes``."""
-    if t.device.type != "cpu":
-        count("shard.gather_bytes", t.numel() * t.element_size())
-    return t.cpu().numpy()
+    @staticmethod
+    def window_data(levels: List[torch.Tensor],
+                    dev: torch.device) -> List[torch.Tensor]:
+        """The cut levels, on ``dev`` already (counts
+        ``shard.device_windows``)."""
+        count("shard.device_windows")
+        return levels
+
+
+def _pieces(parts, boxes):
+    """Each box with (k, the box's piece in it) for every part k of
+    ``parts`` ((owned block, data over it)) whose block meets it."""
+    for b in boxes:
+        yield b, [(k, c) for k, (own, _) in enumerate(parts)
+                  if (c := _isect(own, b)) is not None]
 
 
 def _moved(t: torch.Tensor, device: torch.device,
@@ -833,14 +758,13 @@ def _moved(t: torch.Tensor, device: torch.device,
 
 
 def run_windows(sd: ShardedDenseState, fn: Callable[..., DenseAmrState],
-                device=None, windows: Optional[list] = None,
-                keep: bool = False) -> ShardGather:
-    """``fn`` on every window, one after another, each output's owned cells
-    gathered (``ShardGather``; with ``keep`` kept on their devices,
-    ``ShardedOutput``) before the next window is built.  ``windows``: the
-    argument of ``fn`` for each shard, built already (the windows a solve
-    kept resident); each entry is dropped once visited."""
-    out = ShardedOutput(sd) if keep else ShardGather(sd, device)
+                windows: Optional[list] = None) -> ShardGather:
+    """``fn`` on every window, one after another, each output's owned
+    blocks kept on its device (``ShardGather``) before the next window is
+    built.  ``windows``: the argument of ``fn`` for each shard, built
+    already (the windows a solve kept resident); each entry is dropped
+    once visited."""
+    out = ShardGather(sd)
     for s in range(sd.mesh.size):
         if windows is None:
             arg = sd.window(s)

@@ -30,11 +30,11 @@ thread one Session through the tool mains instead:
     under their output names; a later stage asking for that name gets the
     in-memory object instead of reading the file back, when its device,
     dtype (or, for copy-only consumers, a wider one), periodicity, levels
-    and comps match.  A sharded stage (``ndevices>1``) registers its
-    output kept on the shards' cards (``parallel/dense_shard.py``
-    ``ShardedOutput``): a sharded consumer cuts its windows from it there,
-    one that needs a whole state gathers it on the first card once, one
-    that needs host FABs copies each part to the host;
+    and comps match.  A sharded stage's output (``ndevices>1``,
+    ``parallel/dense_shard.py`` ``ShardGather``) stays on the shards'
+    cards: a sharded consumer cuts its windows from it there, one that
+    needs a whole state gathers it on the first card once, one that needs
+    host FABs copies each part to the host;
   * per-stage ``write=0`` skips the disk artifact entirely;
   * ``async_writes=True`` (pipeline, server) writes plotfiles and text on
     ONE background thread while the next stage computes: the device packs
@@ -70,7 +70,7 @@ import torch
 from . import config
 from .amr.dense import DenseAmrState, _level_metas, assemble_level
 from .amr.hierarchy import load_plotfile_fabs
-from .parallel.dense_shard import ShardedOutput
+from .parallel.dense_shard import HostFabs, ShardGather
 from .telemetry import count, span
 
 
@@ -128,11 +128,12 @@ class LoadedPlotfile:
     (``fabs[lev][i]``: box i's ``[ncomp, *box.shape]`` host array), the
     output of ``amr/hierarchy.load_plotfile_fabs``.  A registered
     in-session output wraps its ``output`` instead: a ``DenseAmrState``,
-    or a ``ShardedOutput`` (``parallel/dense_shard.py``) whose parts stay
-    on their cards.  Its ``fabs`` are copied from the output on first use
-    (the sparse paths need them), in its dtype; ``state`` is the output
-    as one dense state (a sharded output gathers on its first card, once);
-    ``window_source`` is what shard windows are cut from."""
+    or a sharded stage's ``ShardGather`` (``parallel/dense_shard.py``)
+    whose parts stay on their cards.  Its ``fabs`` are copied from the
+    output on first use (the sparse paths need them), in its dtype;
+    ``state`` is the output as one dense state (a sharded output gathers
+    on its first card, once); ``window_source`` is what shard windows are
+    cut from."""
 
     def __init__(self, meta, names, fabs=None, state=None):
         self.meta = meta
@@ -147,14 +148,15 @@ class LoadedPlotfile:
     @property
     def state(self) -> Optional[DenseAmrState]:
         out = self.output
-        return out.state() if isinstance(out, ShardedOutput) else out
+        return out.state() if isinstance(out, ShardGather) else out
 
     @property
     def window_source(self):
         """A sharded output itself (windows cut on the cards), else the
         host FABs."""
         out = self.output
-        return out if isinstance(out, ShardedOutput) else self.fabs
+        return (out if isinstance(out, ShardGather)
+                else HostFabs(self.names, self.fabs))
 
     @property
     def fabs(self):
@@ -440,7 +442,7 @@ class Session:
 
     def put_plotfile(self, name: str, state) -> None:
         """Register a tool's output plotfile: a ``DenseAmrState``, or a
-        ``ShardedOutput`` kept on the shards' cards."""
+        sharded stage's ``ShardGather``."""
         self.plotfiles[name] = LoadedPlotfile.of_state(state)
 
     def put_surface(self, name: str, mef) -> None:
@@ -588,13 +590,16 @@ def stage_submit_io(args: dict, path: str, thunk) -> None:
 
 
 def stage_write_plotfile(args: dict, out, path: str) -> bool:
-    """Write a tool's output plotfile (a ``DenseAmrState`` or a
-    ``ShardedOutput``) honouring write= and the session's write-back.
-    Returns whether a write was issued (now, or queued and settled by a
-    later flush)."""
+    """A tool's output plotfile (a ``DenseAmrState`` or a sharded
+    stage's ``ShardGather``) registered in the session under ``path``,
+    then written honouring write= and the session's write-back.  Returns
+    whether a write was issued (now, or queued and settled by a later
+    flush)."""
+    s = get_session(args)
+    if s is not None:
+        s.put_plotfile(path, out)
     if not stage_writes(args):
         return False
-    s = get_session(args)
     if s is not None and s.async_writes:
         out.to_plotfile_async(path, lambda th: s.submit_write(path, th))
     else:

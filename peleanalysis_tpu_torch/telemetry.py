@@ -39,11 +39,10 @@ Spans (layer: name):
 * marching cubes: ``isosurface.<stage>`` (``geom/marching_cubes.py``);
 * device to host and write: ``write.mef``, ``write.text``,
   ``write.plotfile``, ``writeback.wait`` (``io/fab_pack.py``'s event
-  wait), ``session.flush``; ``shard.gather`` (``ShardGather``: a shard's
-  owned cells moved into the output, or kept on its card by
-  ``ShardedOutput``; its ``state()``, ``write()`` and, from kept parts,
-  ``level_fabs()``), ``shard.merge`` (the isosurface's merge of its
-  windows by node key).
+  wait), ``session.flush``; ``shard.gather`` (``ShardGather``, a sharded
+  stage's output: a shard's owned cells kept on its card, and the
+  ``to_plotfile()``, ``state()`` and ``level_fabs()`` read from them),
+  ``shard.merge`` (the isosurface's merge of its windows by node key).
 
 Counters: ``serve.requests``; ``read.bytes``, ``read.plotfiles``;
 ``session.host_hit``, ``session.host_miss``, ``session.dense_hit``,

@@ -36,9 +36,10 @@ def distance_state(ds: DenseAmrState, tri_verts: np.ndarray, dmax: float,
 def distance_sharded(sd: ShardedDenseState, tri_verts: np.ndarray,
                      dmax: float, sign_field: str,
                      iso_val: float = 0.0) -> ShardGather:
-    """``distance_state`` over the shards of ``sd``, gathered: each level's
-    distance on the cells each shard owns (``geom/sdf.distance_shards``),
-    signed where ``sign_field`` < iso_val on its window."""
+    """``distance_state`` over the shards of ``sd``, kept on their cards:
+    each level's distance on the cells each shard owns
+    (``geom/sdf.distance_shards``), signed where ``sign_field`` < iso_val
+    on its window."""
     meta = sd.meta
     phis = []
     for lev in range(meta.n_levels):

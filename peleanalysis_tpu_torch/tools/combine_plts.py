@@ -21,8 +21,8 @@ import torch
 from .. import config
 from ..amr.dense import DenseAmrState
 from ..parmparse import ParmParse
-from ..session import (dense_state, get_session, load_state,
-                       select, stage_write_plotfile, var_names)
+from ..session import (dense_state, load_state, select,
+                       stage_write_plotfile, var_names)
 from .grad import refuse_unported
 
 
@@ -81,8 +81,5 @@ def main(args: dict) -> None:
         states = [load(f1, comps1), load(f2, comps2)]
         outfile = pp.query_str("outfile", f1 + "_comb")
     out = combine(states)
-    sess = get_session(args)
-    if sess is not None:
-        sess.put_plotfile(outfile, out)
     if stage_write_plotfile(args, out, outfile):
         print(f"wrote {outfile}")

@@ -69,8 +69,8 @@ from ..parallel.dense_shard import (CURVATURE_STAGES, ShardedDenseState,
                                     mesh_from_pp, stencil_halo)
 from ..parallel.halo import WindowHalo
 from ..parmparse import ParmParse
-from ..session import (dense_state, get_session, load_state,
-                       stage_write_plotfile, var_names)
+from ..session import (dense_state, load_state, stage_write_plotfile,
+                       var_names)
 from .grad import grad_bc, refuse_unported, write_clustered, write_sharded
 
 D = 3
@@ -535,9 +535,6 @@ def main(args: dict) -> None:
     dstate = dense_state(args, src, device, config.compute_dtype, names)
     out = _with_aux(compute_curvature_dense(dstate, progress_name, **kw),
                     dstate, aux_names, range(meta.n_levels))
-    sess = get_session(args)
-    if sess is not None:
-        sess.put_plotfile(outfile, out)
     if stage_write_plotfile(args, out, outfile):
         print(f"wrote {outfile}")
 

@@ -20,8 +20,8 @@ from ..amr.dense import DenseAmrState
 from ..ops.dense_fill import fill_dense_multilevel
 from ..ops.filter import filter_weights, separable_filter
 from ..parmparse import ParmParse
-from ..session import (dense_state, get_session, load_state,
-                       stage_write_plotfile, var_names)
+from ..session import (dense_state, load_state, stage_write_plotfile,
+                       var_names)
 from .grad import refuse_unported
 
 
@@ -77,8 +77,5 @@ def main(args: dict) -> None:
         names=names)
     del ds
     outfile = pp.query_str("outfile", infile + "_filt")
-    sess = get_session(args)
-    if sess is not None:
-        sess.put_plotfile(outfile, out)
     if stage_write_plotfile(args, out, outfile):
         print(f"wrote {outfile}")

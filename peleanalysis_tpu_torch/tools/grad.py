@@ -43,8 +43,7 @@ from ..parallel.cluster_shard import cluster_mesh, run_clusters_sharded
 from ..parallel.dense_shard import (GRAD_STAGES, ShardedDenseState,
                                     mesh_from_pp, run_windows, stencil_halo)
 from ..parmparse import ParmParse
-from ..session import (dense_state, get_session, load_state,
-                       stage_write_plotfile)
+from ..session import dense_state, load_state, stage_write_plotfile
 
 
 def grad_bc(is_per: Sequence[bool], sym_dir: Optional[Sequence[int]] = None):
@@ -164,9 +163,6 @@ def main(args: dict) -> None:
         return
     dstate = dense_state(args, src, device, config.compute_dtype, load)
     out = compute_grad_dense(dstate, var, flux_match=flux_match, **kw)
-    sess = get_session(args)
-    if sess is not None:
-        sess.put_plotfile(outfile, out)
     if stage_write_plotfile(args, out, outfile):
         print(f"wrote {outfile}")
 
@@ -175,19 +171,11 @@ def write_sharded(args: dict, sd: ShardedDenseState, fn,
                   outfile: str, windows=None) -> bool:
     """The plotfile of a stencil tool over shard windows: ``fn`` on each
     window (or on each entry of ``windows``, ``run_windows``), its owned
-    cells gathered into the file (``ShardGather``).  In a session the
-    owned cells stay on their shards' cards instead (``ShardedOutput``),
-    registered for later stages: a sharded stage cuts its windows from
-    them on the cards, any other consumer gathers them when it asks, and
-    with write=1 the file is packed from them.  Returns whether a write
-    was issued."""
-    sess = get_session(args)
-    if sess is None:
-        run_windows(sd, fn, windows=windows).write(outfile)
-        return True
-    out = run_windows(sd, fn, windows=windows, keep=True)
-    sess.put_plotfile(outfile, out)
-    return stage_write_plotfile(args, out, outfile)
+    cells kept on their shards' cards (``ShardGather``), registered in a
+    session for later stages and written from there (``write=1``, or
+    outside a session).  Returns whether a write was issued."""
+    return stage_write_plotfile(
+        args, run_windows(sd, fn, windows=windows), outfile)
 
 
 def grad_clustered(meta, names, fabs, device, var: str, outfile: str,

@@ -115,7 +115,7 @@ def main(args: dict) -> None:
         # a sharded output
         sd = ShardedDenseState(meta, load, src.window_source,
                                mesh_from_pp(pp, ndev, device), ISO_HALO,
-                               torch.float64, src.names)
+                               torch.float64)
         t1 = time.perf_counter()
         if meta.ndim2:
             mef = extract_isolines_windows(sd, iso_name, iso_val, extras,
@@ -183,7 +183,7 @@ def main(args: dict) -> None:
         dist_file = pp.query_str(
             "dist_outfile", pp.query_str("outfile", infile + "_dist"))
         if sd is not None:
-            distance_sharded(sd, tri, dmax, iso_name, iso_val).write(
+            distance_sharded(sd, tri, dmax, iso_name, iso_val).to_plotfile(
                 dist_file)
         else:
             distance_state(ds, tri, dmax, iso_name, iso_val).to_plotfile(

@@ -24,7 +24,7 @@ from peleanalysis_tpu_torch.geom.marching_cubes import (
 from peleanalysis_tpu_torch.parallel.cluster_shard import (cluster_mesh,
                                                            cluster_shard)
 from peleanalysis_tpu_torch.parallel.dense_shard import (
-    CURVATURE_STAGES, GRAD_STAGES, ISO_HALO, ShardedDenseState,
+    CURVATURE_STAGES, GRAD_STAGES, ISO_HALO, HostFabs, ShardedDenseState,
     make_spatial_mesh, run_windows, stencil_halo)
 from peleanalysis_tpu_torch.parallel.halo import (halo_exchange, halo_grad,
                                                   halo_grad_x, join_blocks,
@@ -111,8 +111,9 @@ def _owned_changes(meta, names, fabs, mesh, halo, fn):
     """Owned cells (in some level's boxes) whose output differs from the
     unsharded run's."""
     ref = fn(DenseAmrState.from_level_fabs(meta, names, fabs, CPU, F64))
-    sd = ShardedDenseState(meta, names, fabs, mesh, halo, F64)
-    got = run_windows(sd, fn, device=CPU).state()
+    sd = ShardedDenseState(meta, names, HostFabs(names, fabs), mesh, halo,
+                           F64)
+    got = run_windows(sd, fn).state()
     n = 0
     for lev in range(meta.n_levels):
         m = torch.from_numpy(ref.in_level_mask_np(lev))
@@ -156,7 +157,8 @@ def test_iso_halo_is_needed_and_tight(periodic):
     mesh = make_spatial_mesh(3, None, "cpu")
     for halo, same in ((ISO_HALO, True), (narrower(ISO_HALO), False)):
         got = extract_isosurface_windows(
-            ShardedDenseState(meta, names, fabs, mesh, halo, F64), "temp",
+            ShardedDenseState(meta, names, HostFabs(names, fabs), mesh,
+                              halo, F64), "temp",
             1000.0, ["density"])
         equal = (got.nodes.shape == ref.nodes.shape
                  and np.array_equal(got.nodes, ref.nodes)
@@ -222,8 +224,8 @@ def test_dim2_windows_keep_z(tmp_path, shape):
 
 def test_windows_live_on_their_shards_devices():
     meta, names, fabs = _hierarchy()
-    sd = ShardedDenseState(meta, names, fabs, make_spatial_mesh(2, None,
-                                                                "cpu"),
+    sd = ShardedDenseState(meta, names, HostFabs(names, fabs),
+                           make_spatial_mesh(2, None, "cpu"),
                            stencil_halo(GRAD_STAGES, "linear"), F64)
     for s, win in sd:
         assert all(d.device == sd.mesh.devices[s] for d in win.data)

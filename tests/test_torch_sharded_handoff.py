@@ -1,14 +1,15 @@
 """A sharded stage's output kept on its shards' devices
-(``parallel/dense_shard.ShardedOutput``) and handed to the next stage on
+(``parallel/dense_shard.ShardGather``) and handed to the next stage on
 the CPU: every window cut from it equals the window assembled on the host
 from its FABs, byte for byte, masks included, for the grad, curvature and
 isosurface halos, X slabs and blocks, periodic or not, DIM=2 too; its
-gather, its host FABs and its plotfile are those of the gathered state;
-and in a pipeline a sharded curvature feeds a sharded isosurface without
-a host copy of the output (``DenseAmrState.level_fabs`` never called),
-feeds an ``ndevices=1`` consumer and ``conditionalMean`` through the
-gather, and writes the plotfile of ``write=1``, each giving the bytes of
-the unsharded run's."""
+gather, its host FABs and its plotfile are those of the stage run on one
+device, and a part missing is never written as zeros; and in a pipeline
+a sharded curvature feeds a sharded isosurface without a host copy of
+the output (``DenseAmrState.level_fabs`` never called), feeds an
+``ndevices=1`` consumer and ``conditionalMean`` through the gather, and
+writes the plotfile of ``write=1``, each giving the bytes of the
+unsharded run's."""
 import os
 
 import numpy as np
@@ -23,8 +24,8 @@ from peleanalysis_tpu_torch.amr.geometry import Geometry
 from peleanalysis_tpu_torch.amr.hierarchy import load_plotfile_fabs
 from peleanalysis_tpu_torch.io.plotfile import write_plotfile
 from peleanalysis_tpu_torch.parallel.dense_shard import (
-    CURVATURE_STAGES, GRAD_STAGES, ISO_HALO, ShardedDenseState,
-    ShardedOutput, make_spatial_mesh, run_windows, stencil_halo)
+    CURVATURE_STAGES, GRAD_STAGES, ISO_HALO, HostFabs, ShardedDenseState,
+    ShardGather, make_spatial_mesh, run_windows, stencil_halo)
 from peleanalysis_tpu_torch.session import Session
 from peleanalysis_tpu_torch.testing import (make_level_data,
                                             write_synthetic_plotfile)
@@ -97,15 +98,17 @@ def _holes_nan(w: DenseAmrState) -> DenseAmrState:
 
 
 def _produced(path, dtype=F64, layout="ndevices=3"):
-    """(meta, the stage's output kept sharded, the same gathered)."""
+    """(meta, the stage's output kept sharded, the stage on one device:
+    its function on the whole state)."""
     per = (True,) * 3 if "per" in os.path.basename(path) else None
     meta, names, fabs = load_plotfile_fabs(path, is_periodic=per)
     mesh = _mesh(layout)
-    sd = ShardedDenseState(meta, names, fabs, mesh,
+    sd = ShardedDenseState(meta, names, HostFabs(names, fabs), mesh,
                            stencil_halo(GRAD_STAGES, "quadratic"), dtype)
-    kept = run_windows(sd, _holes_nan, keep=True)
-    gathered = run_windows(sd, _holes_nan, device=CPU).state()
-    return meta, kept, gathered
+    kept = run_windows(sd, _holes_nan)
+    one = _holes_nan(DenseAmrState.from_level_fabs(meta, names, fabs, CPU,
+                                                   dtype))
+    return meta, kept, one
 
 
 def _mesh(layout):
@@ -140,8 +143,9 @@ def _check_windows(path, halo, layout, names, dtype=F64, src_dtype=F64):
     mesh = _mesh(layout)
     # the host assembly of the same output, as a consumer of its host
     # FABs builds its windows
-    host = ShardedDenseState(meta, names, kept.level_fabs(), mesh, halo,
-                             dtype, kept.names)
+    host = ShardedDenseState(meta, names,
+                             HostFabs(kept.names, kept.level_fabs()), mesh,
+                             halo, dtype)
     cut = ShardedDenseState(meta, names, kept, mesh, halo, dtype)
     before = telemetry.counter("shard.device_windows")
     for s in range(mesh.size):
@@ -181,15 +185,17 @@ def test_cut_window_takes_some_comps_and_widens(plotfiles, case):
 
 @pytest.mark.parametrize("case", ["plain", "periodic", "holes", "dim2"])
 def test_kept_output_gathers_to_the_gathered_state(plotfiles, case):
-    meta, kept, gathered = _produced(plotfiles[case])
-    assert isinstance(kept, ShardedOutput)
+    """The kept output gathered into one state and copied to the host as
+    FABs: the bytes of the stage run on one device."""
+    meta, kept, one = _produced(plotfiles[case])
+    assert isinstance(kept, ShardGather)
     assert kept.device == CPU and kept.dtype == F64
-    assert kept.names == gathered.names and kept.meta is meta
+    assert kept.names == one.names and kept.meta is meta
     st = kept.state()
     assert kept.state() is st
     for lev in range(meta.n_levels):
-        assert _bytes(st.data[lev]) == _bytes(gathered.data[lev])
-    for a, b in zip(kept.level_fabs(), gathered.level_fabs()):
+        assert _bytes(st.data[lev]) == _bytes(one.data[lev])
+    for a, b in zip(kept.level_fabs(), one.level_fabs()):
         assert len(a) == len(b)
         for x, y in zip(a, b):
             assert x.flags.c_contiguous and x.shape == y.shape
@@ -198,14 +204,33 @@ def test_kept_output_gathers_to_the_gathered_state(plotfiles, case):
 
 @pytest.mark.parametrize("case", ["plain", "periodic", "holes"])
 def test_kept_output_writes_the_gathered_plotfile(plotfiles, case):
-    meta, kept, gathered = _produced(plotfiles[case], layout="ndevices=3")
-    gathered.to_plotfile("ref")
+    """The plotfile packed from the kept parts, on the write-back thread or
+    not: the bytes of ``DenseAmrState.to_plotfile`` of the stage run on
+    one device."""
+    meta, kept, one = _produced(plotfiles[case], layout="ndevices=3")
+    one.to_plotfile("ref")
     kept.to_plotfile("sync")
     s = Session(async_writes=True)
     kept.to_plotfile_async("async", lambda th: s.submit_write("async", th))
     s.flush_writes()
     assert tree_bytes("sync") == tree_bytes("ref")
     assert tree_bytes("async") == tree_bytes("ref")
+
+
+def test_kept_output_missing_a_part_is_not_written(plotfiles):
+    """A shard whose output never reached ``add`` leaves its boxes, and the
+    boxes that straddle its block, without a record: the write raises
+    rather than writing zeros there."""
+    meta, names, fabs = load_plotfile_fabs(plotfiles["plain"])
+    sd = ShardedDenseState(meta, names, HostFabs(names, fabs),
+                           _mesh("ndevices=3"), HALOS["grad"], F64)
+    kept = ShardGather(sd)
+    for s, win in sd:
+        if s != 1:
+            kept.add(s, _holes_nan(win))
+    with pytest.raises(ValueError, match="no record"):
+        kept.to_plotfile("partial")
+    assert not os.path.exists("partial")
 
 
 # -- in a pipeline -------------------------------------------------------------
@@ -301,5 +326,5 @@ def test_sharded_stage_writes_the_one_device_plotfile(plotfiles, case,
     assert cli.main(curvature(plt, "ndevices=3"), session=s) == 0
     assert cli.main(isosurface("ndevices=2"), session=s) == 0
     s.flush_writes()
-    assert isinstance(s.plotfiles["K"].output, ShardedOutput)
+    assert isinstance(s.plotfiles["K"].output, ShardGather)
     assert tree_bytes("K") == tree_bytes("K_ref")

@@ -38,8 +38,8 @@ from peleanalysis_tpu_torch.io.plotfile import PlotfileReader
 from peleanalysis_tpu_torch.ops import solve
 from peleanalysis_tpu_torch.ops.restrict import average_down_all
 from peleanalysis_tpu_torch.parallel.dense_shard import (
-    CURVATURE_STAGES, ShardedDenseState, make_spatial_mesh, run_windows,
-    stencil_halo)
+    CURVATURE_STAGES, HostFabs, ShardedDenseState, make_spatial_mesh,
+    run_windows, stencil_halo)
 from peleanalysis_tpu_torch.parallel.halo import WindowHalo
 from peleanalysis_tpu_torch.testing import (make_amr_hierarchy,
                                             make_level_data,
@@ -178,14 +178,14 @@ def test_exchange_after_average_down_is_needed(monkeypatch):
         "temp", **kw)
 
     def worst():
-        sd = ShardedDenseState(meta, names, fabs,
+        sd = ShardedDenseState(meta, names, HostFabs(names, fabs),
                                make_spatial_mesh(2, None, "cpu"),
                                stencil_halo(CURVATURE_STAGES, "quadratic"),
                                F64)
         wins = [sd.window(s) for s in range(2)]
         sm = cv.smooth_windows(sd, wins, "temp", **kw)
         got = run_windows(sd, lambda a: cv.compute_curvature_dense(
-            a[0], "temp", smoothed=a[1], **kw), device="cpu",
+            a[0], "temp", smoothed=a[1], **kw),
                           windows=list(zip(wins, sm))).state()
         err = 0.0
         for lev in range(2):

@@ -20,7 +20,7 @@ from peleanalysis_tpu_torch.amr.box import Box, BoxArray
 from peleanalysis_tpu_torch.amr.geometry import Geometry
 from peleanalysis_tpu_torch.io.mef import read_mef
 from peleanalysis_tpu_torch.io.plotfile import PlotfileReader, write_plotfile
-from peleanalysis_tpu_torch.parallel.dense_shard import ShardedOutput
+from peleanalysis_tpu_torch.parallel.dense_shard import ShardGather
 from peleanalysis_tpu_torch.session import Session
 from peleanalysis_tpu_torch.testing import (make_level_data,
                                             write_synthetic_plotfile)
@@ -258,7 +258,7 @@ def test_pipeline_sharded_stage_cut_from_a_sharded_output(plotfiles):
     s = Session()
     assert cli.main(["grad", f"infile={plt}", "gradVar=temp", D,
                      "outfile=g", "write=0", "ndevices=3"], session=s) == 0
-    assert isinstance(s.plotfiles["g"].output, ShardedOutput)
+    assert isinstance(s.plotfiles["g"].output, ShardGather)
     assert cli.main([*curv, "infile=g", "outfile=k", "ndevices=4",
                      "mesh_shape=2 2"], session=s) == 0
     assert not os.path.exists("g")
